@@ -12,4 +12,6 @@ def pytest_configure(config):
     # at `-m "not http"`; plain `pytest` still collects everything
     config.addinivalue_line(
         "markers", "http: end-to-end HTTP serving tests over a real engine")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips without one")
 
