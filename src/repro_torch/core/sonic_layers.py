@@ -1,17 +1,37 @@
-"""SONIC serving weight formats: balanced block sparsity and int8 blocks.
+"""SONIC weight formats and the switchable linear layer.
 
-The port of ``repro.core.sonic_layers`` for the served model's path: the
-block-sparse and int8 block-sparse weight formats, their converters, and the
-one-time rewrite of a model's projections into int8 block-sparse form
-(``quantize_serve_params``).  ``serve_quant_apply`` is how a rewritten
-projection is applied: through the hand-written kernels on the card, their
-plain versions on the CPU (``repro_torch.kernels.sonic_matmul.ops``).
+The port of ``repro.core.sonic_layers``: the block-sparse and int8
+block-sparse weight formats and their converters, the one-time rewrite of a
+model's projections into int8 block-sparse form (``quantize_serve_params``,
+applied by ``serve_quant_apply``), and the execution-mode layer
+``sonic_linear_apply`` with its converter ``convert_linear``.  Its modes:
+
+  dense / masked     x @ W
+  topk               static-k activation compression (plain torch ops)
+  clustered          int8 cluster ids + codebook          (C2 serving path)
+  block_sparse       only the kept blocks are streamed    (C1 serving path)
+  sonic              block sparsity × cluster ids, fused  (C1+C2 serving path)
+  block_sparse_int8  kept blocks as int8 × a per-block scale
+  sonic_int8         the same, shape-dispatched like "sonic"
+
+With ``use_kernel=True`` the last five run the hand-written kernels on a
+CUDA tensor and their plain versions on a CPU tensor; with
+``use_kernel=False`` they run the reference's fallbacks, in x's type.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Literal
 
 import torch
+
+from repro_torch.core.activation_sparsity import sparse_ffn_matmul
+from repro_torch.core.clustering import ClusteredWeight
+
+Mode = Literal[
+    "dense", "masked", "clustered", "block_sparse", "topk", "sonic",
+    "block_sparse_int8", "sonic_int8",
+]
 
 
 @dataclasses.dataclass
@@ -28,6 +48,11 @@ class BlockSparseWeight:
     values: torch.Tensor
     indices: torch.Tensor
     k_blocks: int  # Kb
+
+    @property
+    def dense_shape(self) -> tuple[int, int]:
+        nb, _, bk, bn = self.values.shape
+        return self.k_blocks * bk, nb * bn
 
     def dense(self, dtype=torch.float32) -> torch.Tensor:
         return _densify(self.values.to(dtype), self.indices, self.k_blocks)
@@ -131,6 +156,96 @@ def block_sparse_int8_matmul_plain(
     deq = values.to(x2.dtype) * scales[:, :, None, None].to(x2.dtype)
     y = torch.einsum("mnrk,nrkj->mnj", xg, deq)
     return y.reshape(*lead, nb * bn)
+
+
+@dataclasses.dataclass(frozen=True)
+class SonicExecutionConfig:
+    mode: Mode = "dense"
+    use_kernel: bool = False  # the hand-written kernels (plain versions on the CPU)
+    topk_frac: float = 0.25  # kept fraction for the "topk" path
+    block: tuple[int, int] = (128, 128)
+    weight_sparsity: float = 0.75
+    num_clusters: int = 64
+
+
+@dataclasses.dataclass
+class SonicLinearParams:
+    """Union container: exactly one representation is populated."""
+
+    w: torch.Tensor | None = None  # (K, N) dense or masked
+    clustered: ClusteredWeight | None = None
+    block_sparse: BlockSparseWeight | None = None
+    sonic: Any | None = None  # kernels.sonic_matmul.ops.SonicWeight (fused C1+C2)
+    block_sparse_int8: BlockSparseWeightInt8 | None = None
+
+
+def sonic_linear_apply(
+    params: SonicLinearParams, x: torch.Tensor, config: SonicExecutionConfig
+) -> torch.Tensor:
+    """y = x @ W through the configured execution path; x (..., K) → (..., N)."""
+    # the kernel modules import this one
+    from repro_torch.kernels.block_sparse_matmul import ops as bs_ops
+    from repro_torch.kernels.clustered_matmul import ops as cm_ops
+    from repro_torch.kernels.sonic_matmul import ops as sm_ops
+    from repro_torch.kernels.sonic_matmul.ref import sonic_matmul_ref
+
+    mode = config.mode
+    if mode in ("dense", "masked"):
+        return x @ params.w.to(x.dtype)
+    if mode == "topk":
+        k = max(int(round(config.topk_frac * params.w.shape[0])), 1)
+        return sparse_ffn_matmul(x, params.w.to(x.dtype), k)
+    if mode == "clustered":
+        cw = params.clustered
+        if config.use_kernel:
+            return cm_ops.clustered_matmul(x, cw.indices, cw.codebook)
+        return x @ cw.dense(x.dtype)
+    if mode == "block_sparse":
+        bs = params.block_sparse
+        if config.use_kernel:
+            return bs_ops.block_sparse_matmul(x, bs)
+        return x @ bs.dense(x.dtype)
+    if mode in ("block_sparse_int8", "sonic_int8"):
+        q = params.block_sparse_int8
+        if config.use_kernel:
+            # "sonic_int8" dispatches decode rows to the matvec kernel;
+            # "block_sparse_int8" takes the tiled kernel for every M
+            fn = (sm_ops.sonic_matmul_int8 if mode == "sonic_int8"
+                  else bs_ops.block_sparse_matmul_int8)
+            return fn(x, q.values, q.scales, q.indices)
+        return block_sparse_int8_matmul_plain(x, q.values, q.scales, q.indices, q.k_blocks)
+    if mode == "sonic":
+        sw = params.sonic
+        if config.use_kernel:
+            return sm_ops.sonic_matmul(x, sw)
+        lead = x.shape[:-1]
+        y = sonic_matmul_ref(x.reshape(-1, x.shape[-1]), sw.idx_values, sw.codebook,
+                             sw.indices, sw.k_blocks)
+        return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def convert_linear(w: torch.Tensor, config: SonicExecutionConfig) -> SonicLinearParams:
+    """Convert a trained dense W[K, N] into the configured serving format, on
+    W's device."""
+    if config.mode == "clustered":
+        from repro_torch.core.clustering import ClusteringConfig, pack_clustered
+
+        cw = pack_clustered(w, ClusteringConfig(num_clusters=config.num_clusters))
+        return SonicLinearParams(clustered=cw)
+    if config.mode == "block_sparse":
+        return SonicLinearParams(
+            block_sparse=make_block_sparse(w, config.weight_sparsity, config.block))
+    if config.mode == "sonic":
+        from repro_torch.kernels.sonic_matmul.ops import make_sonic_weight
+
+        return SonicLinearParams(sonic=make_sonic_weight(
+            w, sparsity=config.weight_sparsity, block=config.block,
+            num_clusters=config.num_clusters))
+    if config.mode in ("block_sparse_int8", "sonic_int8"):
+        return SonicLinearParams(block_sparse_int8=make_block_sparse_int8(
+            w, config.weight_sparsity, config.block))
+    return SonicLinearParams(w=w)
 
 
 def _auto_block(k: int, n: int, cap: int = 128) -> tuple[int, int]:
