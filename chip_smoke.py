@@ -47,13 +47,40 @@ Phases, in order; any failure exits non-zero before the last line:
   9. kernel times of the four, as in phase 6, on the weights of phase 8:
      sonic_matvec at M = 4, sonic_matmul at M = 256, block_sparse_matmul
      and clustered_matmul at both.
-Prints ``{"kernels": [...]}`` (all six kernels) on the line before the
+ 10. the C3 kernel (sparse_matvec) against its plain version: the five
+     projection shapes at knz = round(K / 4) and B 1, 4, 7; knz 0, 1, 7 ×
+     N 1, 96, 130 × B 1, 4, 7, 256; fp32 and bf16 x and rows, fp32 outputs
+     held to 1e-4; exact zeros from an all-zero weight.
+ 11. C3 paths: the STL10 CNN at its published width (96×96×3 input, fc0
+     147,456 → 512) on a seeded batch of 4: fc0's input through
+     ``topk_sparse_matmul`` (k = its batch-union nonzero count) and one row
+     through ``compress_fc`` + ``sparse_matvec``, both against dense x @ W
+     in fp32 (1e-4), with the activation sparsity; then the full-width
+     tinyllama-1.1b C3 path: phase 8's seeded weights, all 155 projections
+     in bf16 through ``topk_sparse_matmul`` at x (4, 1, K), k = round(K /
+     4), launch counter zeroed just before and read just after (155), and
+     each projection at fp32 against ``sparse_ffn_matmul`` (mode "topk"'s
+     plain path) within 1e-4.  Then the kernel's times as in phase 6: 155
+     launches in one CUDA graph (bf16, B = 4), the plain version, and the
+     library call ``x_nz @ Wt.index_select(0, idx)`` (both in the graph).
+ 12. the SONIC pipeline of the repo's two examples, through the port on the
+     card: C1 ``build_masks`` (sparsity 0.5, (8, 8) blocks) over the full
+     tinyllama-1.1b params, C2 ``cluster_params`` (64 clusters), greedy
+     generation (batch 4 × prompt 64 × 12 new tokens) with the dense and
+     the clustered params and their token agreement, then the photonic
+     model: ``lm_workload`` of the full model through ``evaluate_all``, and
+     for each of the four Table 1 CNNs at its published width
+     ``cnn_workload``, the five-variant ablation and ``evaluate_all`` with
+     SONIC's FPS/W ratio against each baseline.  Those FPS, W and ratios are
+     outputs of the analytical photonic model, not card measurements.
+Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -61,12 +88,24 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core.activation_sparsity import (  # noqa: E402
+    column_scores,
+    sparse_ffn_matmul,
+    top_k,
+)
+from repro_torch.core.clustering import (  # noqa: E402
+    ClusteringConfig,
+    cluster_params,
+    storage_bits,
+)
+from repro_torch.core.compression import compress_fc, compressed_fc_apply  # noqa: E402
 from repro_torch.core.sonic_layers import (  # noqa: E402
     BlockSparseWeightInt8,
     SonicExecutionConfig,
@@ -77,9 +116,22 @@ from repro_torch.core.sonic_layers import (  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.block_sparse_matmul import kernel as bs_kernel  # noqa: E402
 from repro_torch.kernels.clustered_matmul import kernel as cm_kernel  # noqa: E402
+from repro_torch.core.sparsity import (  # noqa: E402
+    SparsityConfig,
+    apply_masks,
+    build_masks,
+    sparsity_of,
+)
 from repro_torch.kernels.sonic_matmul import kernel as sm_kernel  # noqa: E402
+from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
+from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import cnn, transformer  # noqa: E402
+from repro_torch.photonic.accelerator import SonicAccelerator, SonicHWConfig  # noqa: E402
+from repro_torch.photonic.baselines import evaluate_all  # noqa: E402
+from repro_torch.photonic.mapper import cnn_workload, lm_workload  # noqa: E402
+from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.utils.tree import tree_param_count  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
@@ -119,6 +171,9 @@ LAYER_KERNELS = {
         source="src/repro_torch/csrc/clustered_matmul.cu", weight="clustered",
         replaces="src/repro/kernels/clustered_matmul/kernel.py:39", rows=(4, 8, 256, 257)),
 }
+C3_KERNEL = dict(name="sparse_matvec", source="src/repro_torch/csrc/sparse_matvec.cu",
+                 replaces="src/repro/kernels/sparse_matvec/kernel.py:40")
+TOPK_FRAC = 0.25  # mode "topk"'s default kept fraction
 LAYER_MODES = ("sonic", "block_sparse", "clustered")
 LAYER_BLOCK = (128, 128)
 MAIN_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000))
@@ -507,6 +562,243 @@ def phase_layer_timing(converted: dict, launches: dict, errs: dict) -> list[dict
     return out
 
 
+def _c3_case(b: int, k: int, n: int, knz: int, xdtype, wdtype, gen, dev):
+    """x_nz (b, knz), ascending distinct idx (knz,) int32 in [0, k), Wt (k, n)."""
+    wt = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
+    idx = torch.randperm(k, generator=gen, device=dev)[:knz].sort().values.int()
+    x = torch.randn((b, knz), generator=gen, device=dev)
+    return x.to(xdtype), idx, wt.to(wdtype)
+
+
+def phase_c3_kernel(dev: torch.device) -> float:
+    """sparse_matvec against its plain version; returns the largest error at
+    the main path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    types = [(a, b) for a in (torch.float32, torch.bfloat16) for b in (torch.float32, torch.bfloat16)]
+    cases = [(b, k, n, round(TOPK_FRAC * k), True) for k, n in MAIN_SHAPES for b in (1, 4, 7)]
+    cases += [(b, 50, n, knz, False) for knz in (0, 1, 7) for n in (1, 96, 130)
+              for b in (1, 4, 7, 256)]
+    err, n_checks = 0.0, 0
+    for b, k, n, knz, main in cases:
+        for xdtype, wdtype in types:
+            x, idx, wt = _c3_case(b, k, n, knz, xdtype, wdtype, gen, dev)
+            got = smv_kernel.sparse_matvec_kernel(x, idx, wt)
+            want = smv_kernel.sparse_matvec_plain(x, idx, wt)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+            if knz == 0 and not (got == 0).all():
+                raise AssertionError("no kept rows gave nonzero outputs")
+            n_checks += 1
+            if main:
+                err = max(err, (got - want).abs().max().item())
+    x, idx, wt = _c3_case(4, 2048, 2048, 512, torch.bfloat16, torch.bfloat16, gen, dev)
+    if not (smv_kernel.sparse_matvec_kernel(x, idx, torch.zeros_like(wt)) == 0).all():
+        raise AssertionError("an all-zero weight gave nonzero outputs")
+    emit({"phase": "c3_kernel_vs_plain", "cases": len(cases), "checks": n_checks,
+          "tolerance": TOL, "max_abs_err_main_shapes": err})
+    return err
+
+
+def _fc_input(cfg, acts: list[torch.Tensor]) -> torch.Tensor:
+    """What ``cnn.forward`` flattens into fc0: the last conv's post-ReLU
+    output, pooled if its stage ends in a pool."""
+    last = len(cfg.conv_channels) - 1
+    x = acts[last]
+    if last in cfg.pool_after:
+        x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    return x.reshape(x.shape[0], -1)
+
+
+def phase_c3_cnn(dev: torch.device) -> None:
+    """C3 on STL10's fc0 at its published width: the compressed products
+    against the dense one, in the exact regime (k ≥ the nonzero columns)."""
+    cfg = cnn.STL10_CNN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = cnn.init_params(cfg, gen)
+    sample = torch.rand((4, *cfg.input_hw), generator=gen, device=dev)
+    logits, acts = cnn.forward(params, cfg, sample, return_activations=True)
+    x, w = _fc_input(cfg, acts), params["fc"][0]["kernel"]
+    dense = x @ w
+    k = int((x != 0).any(dim=0).sum())
+    smv_kernel.sparse_matvec_kernel.launches = 0
+    y = smv_ops.topk_sparse_matmul(x, w, k)
+    c = compress_fc(w.T, x[0])
+    y0 = smv_ops.sparse_matvec(c.x_nz, c.idx, w)
+    torch.cuda.synchronize()
+    launches = smv_kernel.sparse_matvec_kernel.launches
+    if launches != 2 or logits.shape != (4, cfg.n_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"STL10 C3: {launches} launches, logits {tuple(logits.shape)}")
+    torch.testing.assert_close(y, dense, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(y0, dense[0], rtol=TOL, atol=TOL)
+    torch.testing.assert_close(compressed_fc_apply(c), dense[0], rtol=TOL, atol=TOL)
+    emit({"phase": "c3_cnn", "model": cfg.name, "input": list(cfg.input_hw), "batch": 4,
+          "fc0": list(w.shape), "params": cnn.param_count(params),
+          "fc0_input_sparsity": sparsity_of(x), "k_batch_union_nonzero": k,
+          "row0_nonzero": c.idx.numel(),
+          "post_relu_sparsity": [round(sparsity_of(a), 6) for a in acts],
+          "max_abs_err_topk_vs_dense": (y - dense).abs().max().item(),
+          "max_abs_err_compress_fc_vs_dense": (y0 - dense[0]).abs().max().item(),
+          "tolerance": TOL})
+
+
+def _topk_k(w: torch.Tensor) -> int:
+    return max(int(round(TOPK_FRAC * w.shape[0])), 1)
+
+
+def phase_c3_path(eng, card: str):
+    """The full-width tinyllama-1.1b C3 path: every projection through
+    ``topk_sparse_matmul``, counted; then fp32 against ``sparse_ffn_matmul``.
+    Returns the seeded fp32 params, the timed kernel's operands and its
+    launch count."""
+    cfg, dev = eng.cfg, eng.device
+    raw = eng.arch.init_params(torch.Generator(device=dev).manual_seed(0), dev)  # phase 8's
+    ws = _projection_weights(cfg, raw)
+    w16 = [w.bfloat16() for w in ws]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    xs = {k: torch.randn((4, 1, k), generator=gen, device=dev, dtype=torch.bfloat16)
+          for k in (cfg.d_model, cfg.d_ff)}
+
+    smv_kernel.sparse_matvec_kernel.launches = 0
+    ys = [smv_ops.topk_sparse_matmul(xs[w.shape[0]], w, _topk_k(w)) for w in w16]
+    torch.cuda.synchronize()
+    launches = smv_kernel.sparse_matvec_kernel.launches
+    good = sum(y.shape == (4, 1, w.shape[1]) and y.dtype == torch.bfloat16
+               and bool(torch.isfinite(y).all()) for y, w in zip(ys, w16))
+    if launches != len(ws) or good != len(ws):
+        raise AssertionError(f"C3 path: {launches} launches and {good} good outputs, "
+                             f"want {len(ws)}")
+    err = 0.0
+    for w in ws:
+        x = xs[w.shape[0]].float()
+        got, ref = smv_ops.topk_sparse_matmul(x, w, _topk_k(w)), sparse_ffn_matmul(x, w, _topk_k(w))
+        torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
+        err = max(err, (got - ref).abs().max().item())
+    operands = []  # (x_nz, idx, Wt) as topk_sparse_matmul hands them to the kernel
+    for w in w16:
+        x2 = xs[w.shape[0]].reshape(4, -1)
+        idx = top_k(column_scores(x2), _topk_k(w)).sort().values
+        operands.append((x2.index_select(1, idx).contiguous(), idx.int(), w))
+    emit({"phase": "c3_path", "card": card, "projections": len(ws), "topk_frac": TOPK_FRAC,
+          "launches": launches, "gathered_weights": sum(x.shape[1] * w.shape[1]
+                                                        for x, _, w in operands),
+          "max_abs_err_vs_sparse_ffn_matmul_fp32": err, "tolerance": TOL})
+    return raw, operands, launches
+
+
+def phase_c3_timing(operands: list, launches: int, err: float) -> dict:
+    """One step's worth (155 projections) of sparse_matvec: kernel, plain
+    version, the library call x_nz @ Wt.index_select(0, idx) (gather and
+    product both in the graph) and the bound (bytes: gathered rows + x_nz +
+    idx + y (fp32); operations: 2·B·knz·N at the bf16 tensor-core peak)."""
+    n_bytes = n_ops = bound_s = 0.0
+    for x, idx, w in operands:
+        b, knz = x.shape
+        n = w.shape[1]
+        byt = knz * n * w.element_size() + x.numel() * x.element_size() + 4 * knz + 4 * b * n
+        ops = 2.0 * b * knz * n
+        n_bytes, n_ops = n_bytes + byt, n_ops + ops
+        bound_s += max(byt / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+    entry = {
+        **C3_KERNEL, "route": "cuda", "launches": launches, "max_abs_err": err,
+        "rows": operands[0][0].shape[0],
+        "ms": _step_ms(lambda: [smv_kernel.sparse_matvec_kernel(*o) for o in operands]),
+        "plain_ms": _step_ms(lambda: [smv_kernel.sparse_matvec_plain(*o) for o in operands]),
+        "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / BF16_TENSOR_FLOPS
+        else "operations",
+        "library_ms": _step_ms(lambda: [x @ w.index_select(0, idx) for x, idx, w in operands]),
+    }
+    emit({"phase": "kernel_time", "launches_per_step": len(operands),
+          "bytes": n_bytes, "kernel_ms": entry["ms"],
+          **{k: v for k, v in entry.items() if k != "ms"}})
+    return entry
+
+
+def _report(r) -> dict:
+    return {"fps": r.fps, "power_w": r.power_w, "fps_per_w": r.fps_per_w, "epb_j_per_bit": r.epb}
+
+
+PHOTONIC = "analytical photonic model (repro_torch.photonic), not a card measurement"
+ABLATION = {
+    "full SONIC (5,50,50,10)": SonicHWConfig(),
+    "no clustering (16b DACs)": SonicHWConfig(weight_bits=16),
+    "no sparsity gating": SonicHWConfig(sparsity_gating=False),
+    "no compression": SonicHWConfig(compression=False),
+    "none (dense photonic)": SonicHWConfig(weight_bits=16, sparsity_gating=False,
+                                           compression=False),
+}
+PAPER_FPS_PER_W = {"CrossLight": 2.94, "HolyLight": 13.8, "LightBulb": 3.08,
+                   "NullHop": 5.81, "RSNN": 4.02}
+
+
+def phase_pipeline(eng, raw: dict, card: str) -> None:
+    """The two examples' pipeline through the port at full width: C1, C2,
+    dense and clustered generation, then the photonic model's pricing."""
+    arch, cfg, dev = eng.arch, eng.cfg, eng.device
+    t0 = time.perf_counter()
+    masks = build_masks(raw, SparsityConfig(target_sparsity=0.5, block=(8, 8)))
+    sparse = apply_masks(raw, masks)
+    del masks
+    torch.cuda.synchronize()
+    t_c1 = time.perf_counter() - t0
+    wi_sparsity = sparsity_of(sparse["layers"]["ffn"]["wi"]["kernel"])
+    c2 = ClusteringConfig(num_clusters=64)
+    t0 = time.perf_counter()
+    clustered, packed = cluster_params(sparse, c2)
+    torch.cuda.synchronize()
+    t_c2 = time.perf_counter() - t0
+    del sparse
+    name, cw = next(iter(packed.items()))
+    bits_ratio = cw.indices.numel() * 16 / storage_bits(tuple(cw.indices.shape), c2)
+    n_new = 12
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    sc = ServeConfig(max_len=64 + n_new)
+    outs = {kind: ServeEngine(arch, p, sc, device=dev).generate(prompts, n_new)
+            for kind, p in (("dense", raw), ("clustered", clustered))}
+    for out in outs.values():
+        if out.shape != (4, n_new) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"bad tokens {tuple(out.shape)}")
+    if not 0.45 < wi_sparsity < 0.55:
+        raise AssertionError(f"C1 sparsity on ffn/wi {wi_sparsity}, want ≈ 0.5")
+    emit({"phase": "pipeline_c1_c2", "card": card, "model": cfg.arch_id,
+          "params": tree_param_count(raw), "c1_block": [8, 8], "c1_seconds": t_c1,
+          "c1_sparsity_ffn_wi": wi_sparsity, "c2_clusters": 64, "c2_seconds": t_c2,
+          "c2_leaves": len(packed), "c2_first_leaf": name, "c2_weight_bits_ratio": bits_ratio,
+          "batch": 4, "prompt_len": 64, "new_tokens": n_new,
+          "dense_tokens_row0": outs["dense"][0].tolist(),
+          "clustered_tokens_row0": outs["clustered"][0].tolist(),
+          "token_agreement": (outs["dense"] == outs["clustered"]).float().mean().item()})
+    del clustered, packed
+
+    reports = evaluate_all(lm_workload(cfg, weight_sparsity=0.5, act_sparsity=0.5))
+    emit({"phase": "photonic_lm", "source": PHOTONIC, "model": cfg.arch_id,
+          "weight_sparsity": 0.5, "act_sparsity": 0.5,
+          "reports": {n: _report(r) for n, r in reports.items()}})
+    for name, ccfg in cnn.PAPER_CNNS.items():
+        params = cnn.init_params(ccfg, torch.Generator(device=dev).manual_seed(0))
+        ws = {f"conv{i}": 0.5 for i in range(len(ccfg.conv_channels))} | {"fc0": 0.8}
+        work = cnn_workload(ccfg, params, ws)
+        reports = evaluate_all(work)
+        s = reports["SONIC"]
+        ratios = {n: s.fps_per_w / r.fps_per_w for n, r in reports.items() if n != "SONIC"}
+        if not all(math.isfinite(v) and v > 0 for v in ratios.values()):
+            raise AssertionError(f"{name}: bad FPS/W ratios {ratios}")
+        if name == "cifar10":  # the band the repo's own test holds the model to
+            for n, want in PAPER_FPS_PER_W.items():
+                if not 0.4 * want <= ratios[n] <= 2.0 * want:
+                    raise AssertionError(f"cifar10 vs {n}: FPS/W ratio {ratios[n]}")
+        emit({"phase": "photonic_cnn", "source": PHOTONIC, "model": name,
+              "params": cnn.param_count(params), "weight_sparsity": ws,
+              "work": [{"name": w.name, "kind": w.kind, "vec_len": w.vec_len,
+                        "n_products": w.n_products, "reuse": w.reuse,
+                        "act_sparsity": w.act_sparsity} for w in work],
+              "ablation": {v: _report(SonicAccelerator(hw).evaluate(work))
+                           for v, hw in ABLATION.items()},
+              "reports": {n: _report(r) for n, r in reports.items()},
+              "sonic_fps_per_w_ratio": ratios})
+
+
 @torch.inference_mode()
 def main() -> None:
     if not torch.cuda.is_available():
@@ -528,6 +820,13 @@ def main() -> None:
     layer_errs = phase_layer_kernels(dev)
     converted, layer_launches = phase_layer_path(eng, card)
     kernels += phase_layer_timing(converted, layer_launches, layer_errs)
+    del converted
+    c3_err = phase_c3_kernel(dev)
+    phase_c3_cnn(dev)
+    raw, operands, c3_launches = phase_c3_path(eng, card)
+    kernels.append(phase_c3_timing(operands, c3_launches, c3_err))
+    del operands
+    phase_pipeline(eng, raw, card)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,8 @@ a numpy array (``np.array(leaf)`` of each JAX array: a writable copy, since
 ``np.asarray`` of a JAX array is read-only) and returns the same nesting of
 torch tensors on ``device``, dtypes kept: the stacked (L, …) layer leaves,
 the ``qvalues`` / ``qscales`` / ``qindices`` leaves of a quantized tree
-(int8, fp32, int32), the embedding, norm scales and fp kernels.
+(int8, fp32, int32), the embedding, norm scales and fp kernels.  Lists and
+tuples are walked as dicts are (the CNNs' ``{"conv": [...], "fc": [...]}``).
 
 ``linear_params_from_jax`` does the same for one converted linear layer:
 the reference's ``SonicLinearParams`` with numpy fields (what
@@ -35,9 +36,11 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree: dict, device) -> dict:
+def params_from_jax(tree, device):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
     return _tensor(tree, device)
 
 

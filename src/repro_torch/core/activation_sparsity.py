@@ -4,20 +4,31 @@ The port of ``repro.core.activation_sparsity``: the executable path fixes the
 kept count k per layer and keeps the k largest-magnitude activations.
 Batched inputs share one mask (scores are |x| summed over the leading
 axes), so a batch gathers the same weight rows.  Plain torch ops: this path
-has no kernel.  ``torch.topk`` does not promise ``jax.lax.top_k``'s order on
-tied scores (lower index first), so the two agree on tie-free scores.
+has no kernel.  Ties keep ``jax.lax.top_k``'s order, lower index first
+(``top_k``), so the kept set is the reference's even where scores tie, as
+they do for every zero column of a ReLU activation.
 """
 from __future__ import annotations
 
 import torch
 
 
+def top_k(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest scores along the last dim, in descending
+    score order and, among equal scores, lower index first (the order of
+    ``jax.lax.top_k``; ``torch.topk`` promises none)."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def column_scores(x: torch.Tensor) -> torch.Tensor:
+    """(d,) fp32 |x| summed over every leading axis of x (..., d)."""
+    return x.float().abs().reshape(-1, x.shape[-1]).sum(dim=0)
+
+
 def _shared_topk(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices (k,) of the k largest |x| columns, scores summed over the
     leading axes, in descending score order."""
-    d = x.shape[-1]
-    scores = x.float().abs().reshape(-1, d).sum(dim=0)
-    return torch.topk(scores, min(k, d)).indices
+    return top_k(column_scores(x), min(k, x.shape[-1]))
 
 
 def topk_activation_mask(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -25,7 +25,7 @@ from typing import Any, Literal
 
 import torch
 
-from repro_torch.core.activation_sparsity import sparse_ffn_matmul
+from repro_torch.core.activation_sparsity import sparse_ffn_matmul, top_k
 from repro_torch.core.clustering import ClusteredWeight
 
 Mode = Literal[
@@ -79,7 +79,7 @@ def make_block_sparse(
     r = max(int(round(kb * (1.0 - sparsity))), 1)
     blocks = w.reshape(kb, bk, nb, bn).permute(2, 0, 1, 3)  # (nb, kb, bk, bn)
     norms = blocks.float().abs().sum(dim=(-2, -1))  # (nb, kb)
-    idx = torch.topk(norms, r, dim=1).indices
+    idx = top_k(norms, r)
     idx = idx.sort(dim=1).values  # ascending K order → sequential streaming
     vals = torch.take_along_dim(blocks, idx[:, :, None, None], dim=1)
     return BlockSparseWeight(values=vals.contiguous(), indices=idx.to(torch.int32),

@@ -45,6 +45,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #               M, K, Nb, R, bk, bn, stream)
 #   clustered: (x, x_is_bf16, ids, ids_is_int32, fp32 codebook, C, y,
 #               M, K, N, stream)
+#   sparse_matvec: (x_nz, x_is_bf16, int32 idx, wt, wt_is_bf16, y, fp32
+#               workspace, workspace floats, B, knz, K, N, stream); its
+#               workspace holds one (B, N) partial sum per chunk of
+#               ``sparse_matvec_chunk_rows()`` idx rows (none for one chunk)
 _INT8 = [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]
 _CODEBOOK = [_P, _I, _P, _P, _I, _P, _P] + [_I] * 6 + [_P]
 SIGNATURES = {
@@ -54,6 +58,8 @@ SIGNATURES = {
     "sonic_matmul": _CODEBOOK,
     "block_sparse_matmul": [_P, _I, _P, _I, _P, _P] + [_I] * 6 + [_P],
     "clustered_matmul": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P],
+    "sparse_matvec": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
+    "sparse_matvec_chunk_rows": [],
 }
 MAX_CODEBOOK = {torch.int8: 128, torch.int32: 1024}  # centroids per id type
 
@@ -249,4 +255,31 @@ def launch_clustered(x: torch.Tensor, ids: torch.Tensor, codebook: torch.Tensor)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), ids.data_ptr(),
           int(ids.dtype == torch.int32), codebook.data_ptr(), c, y.data_ptr(), m, k, n,
           _stream(x))
+    return y
+
+
+def launch_sparse_matvec(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """y (B, N) fp32 from ``sparse_matvec``: x_nz (B, knz) times the rows of
+    wt (K, N) (fp32 or bf16) that idx (knz,) int32 names.  The indices must
+    lie in [0, K), as ``topk_sparse_matmul`` makes them; the kernel clamps
+    them rather than read outside wt, and checking would cost a sync."""
+    name = "sparse_matvec"
+    _check_x(name, x_nz)
+    _check(name, x_nz, idx, (torch.int32,), "idx")
+    _check(name, x_nz, wt, (torch.float32, torch.bfloat16), "wt")
+    b, knz = x_nz.shape
+    if idx.shape != (knz,) or wt.dim() != 2 or min(wt.shape) < 1:
+        raise ValueError(f"{name}: want idx ({knz},) and wt (K ≥ 1, N ≥ 1), got "
+                         f"{tuple(idx.shape)} and {tuple(wt.shape)}")
+    k, n = wt.shape
+    lib = load_library()
+    chunks = -(-knz // lib.sparse_matvec_chunk_rows())
+    ws_floats = chunks * b * n if chunks > 1 else 0
+    if max(b * knz, b * n, wt.numel(), ws_floats) >= 2**31:
+        raise ValueError(f"{name}: operands past 2**31 elements")
+    y = torch.empty((b, n), dtype=torch.float32, device=x_nz.device)
+    ws = torch.empty((ws_floats,), dtype=torch.float32, device=x_nz.device) if ws_floats else None
+    _call(name, x_nz.data_ptr(), int(x_nz.dtype == torch.bfloat16), idx.data_ptr(),
+          wt.data_ptr(), int(wt.dtype == torch.bfloat16), y.data_ptr(),
+          None if ws is None else ws.data_ptr(), ws_floats, b, knz, k, n, _stream(x_nz))
     return y

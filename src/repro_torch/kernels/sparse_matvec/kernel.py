@@ -1,0 +1,40 @@
+"""Compressed sparse matvec: Hopper kernel + plain version.
+
+Replaces the TPU kernel ``sparse_matvec_pallas``
+(``src/repro/kernels/sparse_matvec/kernel.py:40``).  The CUDA source is
+``src/repro_torch/csrc/sparse_matvec.cu``; its note gives the bound on an
+H100 (bytes: each gathered weight row read once) and the design: the kept
+rows cut into chunks of 64, one partial sum per (column tile, chunk) with
+the rows held in registers across every row of x, then the chunks added in
+a fixed order by a second pass, so a row's result does not depend on B.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+
+def sparse_matvec_plain(
+    x_nz: torch.Tensor,  # (B, knz) bf16 / fp32
+    idx: torch.Tensor,  # (knz,) int32
+    wt: torch.Tensor,  # (K, N) bf16 / fp32
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: gather the rows idx names and
+    contract in fp32.  Returns y (B, N) fp32."""
+    return x_nz.float() @ wt.index_select(0, idx.long()).float()
+
+
+def sparse_matvec_kernel(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """y (B, N) fp32 = x_nz (B, knz) @ wt[idx].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in ``sparse_matvec_kernel.launches``) or raises."""
+    if x_nz.device.type == "cpu":
+        return sparse_matvec_plain(x_nz, idx, wt)
+    y = build.launch_sparse_matvec(x_nz, idx, wt)
+    sparse_matvec_kernel.launches += 1
+    return y
+
+
+sparse_matvec_kernel.launches = 0

@@ -35,3 +35,8 @@ def tree_map_with_path_names(fn: Callable[[str, Any], Any], tree: Any,
         return type(tree)(tree_map_with_path_names(fn, v, _join(prefix, i))
                           for i, v in enumerate(tree))
     return tree if tree is None else fn(prefix, tree)
+
+
+def tree_param_count(tree: Any) -> int:
+    """Total number of elements over every leaf."""
+    return sum(leaf.numel() for _, leaf in named_leaves(tree))

@@ -555,3 +555,66 @@ def test_cuda_new_kernels_zero_deterministic_and_row_stable(cuda):
                                                         indices))
     assert (sm_kernel.sonic_matvec_kernel(x[:5].contiguous(), ids, torch.zeros_like(codebook),
                                           indices) == 0).all()
+
+
+# ------------------------------------------- the compressed sparse matvec
+
+
+def _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    wt = torch.randn((k, n), generator=gen, device=device).to(wdtype)
+    idx = torch.randperm(k, generator=gen, device=device)[:knz].sort().values.int()
+    x = torch.randn((b, knz), generator=gen, device=device).to(xdtype)
+    return x, idx, wt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,n,knz", [
+    (1, 256, 512, 64), (4, 2048, 2048, 512), (4, 5632, 256, 1408), (7, 2048, 130, 65),
+    (256, 96, 96, 7), (3, 50, 1, 17), (8, 128, 200, 128), (5, 64, 96, 1), (2, 64, 40, 0)])
+def test_cuda_sparse_matvec_matches_plain(cuda, b, k, n, knz, xdtype, wdtype):
+    from repro_torch.kernels.sparse_matvec import kernel as smv_kernel
+
+    x, idx, wt = _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, cuda)
+    got = smv_kernel.sparse_matvec_kernel(x, idx, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    # fp32 both; the sums run in another order over up to 1408 terms
+    torch.testing.assert_close(got, smv_kernel.sparse_matvec_plain(x, idx, wt),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_matvec_zero_deterministic_row_stable_and_unaligned(cuda):
+    """Exact zeros from a zero weight, zero x or no kept rows; two runs agree
+    bit for bit; a row's result does not depend on B (chunks fixed by knz);
+    a weight that is not 16-byte aligned takes the one-column path."""
+    from repro_torch.kernels.sparse_matvec import kernel as smv_kernel
+    from repro_torch.kernels.sparse_matvec import ops as smv_ops
+
+    fn = smv_kernel.sparse_matvec_kernel
+    x, idx, wt = _cuda_sparse_case(300, 2048, 1024, 700, torch.bfloat16, torch.bfloat16, cuda)
+    assert (fn(x, idx, torch.zeros_like(wt)) == 0).all()
+    assert (fn(torch.zeros_like(x), idx, wt) == 0).all()
+    none = fn(x[:, :0].contiguous(), idx[:0], wt)
+    assert none.shape == (300, 1024) and (none == 0).all()
+    a = fn(x, idx, wt)
+    assert torch.equal(a, fn(x, idx, wt))
+    for m in (1, 3, 4, 9, 40):
+        assert torch.equal(a[:m], fn(x[:m].contiguous(), idx, wt))
+    flat = torch.empty(wt.numel() + 1, device=cuda, dtype=torch.float32)
+    shifted = flat[1:].view(wt.shape)
+    shifted.copy_(wt.float())
+    assert shifted.data_ptr() % 16
+    torch.testing.assert_close(fn(x[:4].contiguous(), idx, shifted), a[:4], rtol=1e-4,
+                               atol=1e-4)
+    # the whole C3 op is exact on an input with ≤ k nonzero columns
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xs = torch.randn((4, 2048), generator=gen, device=cuda)
+    xs[:, torch.rand(2048, generator=gen, device=cuda) < 0.8] = 0
+    k = int((xs != 0).any(0).sum())
+    w = wt.float()[:, :512].contiguous()
+    torch.testing.assert_close(smv_ops.topk_sparse_matmul(xs, w, k), xs @ w, rtol=1e-4,
+                               atol=1e-4)
