@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before the last line:
   1. device: a CUDA card (else exit 1), its name and power limit as
      nvidia-smi gives them; TF32 off for matmuls and cuDNN.
   2. build: the CUDA kernels from src/repro_torch/csrc into build/, timed,
-     with ptxas's register / spill summary.
+     with ptxas's register / spill summary and each source's compile
+     seconds.
   3. kernels vs plain versions: each kernel against its plain PyTorch
      version at the main path's projection shapes (128×128 blocks,
      sparsity 0.5) and at small blocks, fp32 and bf16 x, fp32 outputs held
@@ -34,7 +35,13 @@ Phases, in order; any failure exits non-zero before the last line:
      plain versions, as in phase 3: the five projection shapes at
      (128, 128) blocks and (512, 384) at blocks (1, 1), (16, 16), (32, 64);
      fp32 and bf16 x, fp32 and bf16 values, int8 and int32 ids; exact zeros
-     from an all-zero weight.
+     from an all-zero weight.  sonic_matmul and clustered_matmul have two
+     routes (``build.codebook_route``: bf16 x on the tensor cores where the
+     tiles fit, the rest on the CUDA cores); both must have run, and each
+     route's largest error is reported.  Then clustered_matmul's two routes
+     and its plain version against the exact (fp64) product at unit-scale
+     centroids, K = 5632, M = 257: the tensor-core route within 1e-4 of it
+     and no less accurate (rms) than the plain version.
   8. layer path: the served model's seeded fp32 weights (all 155
      projections at full width) converted on the card by ``convert_linear``
      in modes "sonic", "block_sparse" and "clustered" (sparsity 0.5,
@@ -42,11 +49,16 @@ Phases, in order; any failure exits non-zero before the last line:
      bit for bit; then ``sonic_linear_apply(use_kernel=True)`` over all 155
      at x (4, 1, K) and (4, 64, K) in bf16, launch counters zeroed just
      before and read just after (155 per pass: decode rows on sonic_matvec
-     in mode "sonic", on the tiled kernels in the other two); then each
-     projection at fp32 x against ``use_kernel=False`` within 1e-4.
+     in mode "sonic", on the tiled kernels in the other two), with every
+     bf16 launch of sonic_matmul and clustered_matmul on the tensor-core
+     route; then each projection at fp32 x against ``use_kernel=False``
+     within 1e-4.
   9. kernel times of the four, as in phase 6, on the weights of phase 8:
      sonic_matvec at M = 4, sonic_matmul at M = 256, block_sparse_matmul
-     and clustered_matmul at both.
+     and clustered_matmul at both; for the two codebook matmuls also the
+     route the timed launches took (their route counters), the achieved
+     TFLOP/s (2·M·weights), the earlier time and µs per launch of each
+     projection shape (the kernels line keeps the measured times only).
  10. the C3 kernel (sparse_matvec) against its plain version: the five
      projection shapes at knz = round(K / 4) and B 1, 4, 7; knz 0, 1, 7 ×
      N 1, 96, 130 × B 1, 4, 7, 256; fp32 and bf16 x and rows, fp32 outputs
@@ -173,6 +185,11 @@ LAYER_KERNELS = {
 }
 C3_KERNEL = dict(name="sparse_matvec", source="src/repro_torch/csrc/sparse_matvec.cu",
                  replaces="src/repro/kernels/sparse_matvec/kernel.py:40")
+# The two codebook matmuls' routes, and their times before the tensor-core
+# route (PR 13's chip run, NVIDIA H100 80GB HBM3, 700 W), by rows
+ROUTED = ("sonic_matmul", "clustered_matmul")
+PREVIOUS_MS = {("sonic_matmul", 256): 23.137, ("clustered_matmul", 256): 44.351,
+               ("clustered_matmul", 4): 17.647}
 TOPK_FRAC = 0.25  # mode "topk"'s default kept fraction
 LAYER_MODES = ("sonic", "block_sparse", "clustered")
 LAYER_BLOCK = (128, 128)
@@ -190,9 +207,12 @@ def phase_build() -> None:
     log = lib.with_suffix(".log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
+    source_s = {name: float(sec) for name, sec in re.findall(r"^== (\S+) \(([\d.]+) s\)", log,
+                                                             re.M)}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "library": str(lib.relative_to(ROOT)), "kernels_compiled": len(regs),
-          "max_registers": max(regs), "spill_store_bytes": spills})
+          "max_registers": max(regs), "spill_store_bytes": spills,
+          "source_seconds": source_s})
 
 
 def phase_kernels(dev: torch.device) -> dict[str, float]:
@@ -398,6 +418,8 @@ def phase_layer_kernels(dev: torch.device) -> dict[str, float]:
     cases = [(k, n, (128, 128), True) for k, n in MAIN_SHAPES]
     cases += [(512, 384, block, False) for block in ((1, 1), (16, 16), (32, 64))]
     errs = dict.fromkeys(LAYER_KERNELS, 0.0)
+    route_errs = {name: dict.fromkeys(build.ROUTES, 0.0) for name in ROUTED}
+    _reset_routes()
     n_checks = 0
     for k, n, block, main in cases:
         forms = _layer_weights(k, n, block, gen, dev)
@@ -408,22 +430,65 @@ def phase_layer_kernels(dev: torch.device) -> dict[str, float]:
                 for m in kn["rows"]:
                     for dtype in (torch.float32, torch.bfloat16):
                         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                        before = dict(getattr(kn["wrapper"], "routes", {}))
                         got = kn["wrapper"](x, *w)
                         want = kn["plain"](x, *w)
                         torch.cuda.synchronize()
                         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
                         n_checks += 1
+                        err = (got - want).abs().max().item()
                         if main:
-                            errs[name] = max(errs[name], (got - want).abs().max().item())
+                            errs[name] = max(errs[name], err)
+                        if name in ROUTED:
+                            route = next(r for r, v in kn["wrapper"].routes.items()
+                                         if v > before[r])
+                            route_errs[name][route] = max(route_errs[name][route], err)
     zero = {form: tuple(torch.zeros_like(a) if a.is_floating_point() else a for a in w)
             for form, w in _layer_weights(2048, 2048, (128, 128), gen, dev)}
     for kn in LAYER_KERNELS.values():
         x = torch.randn((kn["rows"][1], 2048), device=dev, dtype=torch.bfloat16)
         if not (kn["wrapper"](x, *zero[kn["weight"]]) == 0).all():
             raise AssertionError("an all-zero weight gave nonzero outputs")
+    routes = {name: dict(LAYER_KERNELS[name]["wrapper"].routes) for name in ROUTED}
+    if not all(v > 0 for r in routes.values() for v in r.values()):
+        raise AssertionError(f"a route of the codebook matmuls never ran: {routes}")
     emit({"phase": "layer_kernels_vs_plain", "cases": len(cases), "checks": n_checks,
-          "tolerance": TOL, "max_abs_err_main_shapes": errs})
+          "tolerance": TOL, "max_abs_err_main_shapes": errs, "routes": routes,
+          "max_abs_err_by_route": route_errs, "fp64_witness": _fp64_witness(dev)})
     return errs
+
+
+def _fp64_witness(dev: torch.device) -> list[dict]:
+    """clustered_matmul's two routes and its plain version against the
+    exact (fp64) product, unit-scale centroids, K = 5632, M = 257, 2048
+    columns, bf16 x: max and rms |Δ| of each.  The tensor-core route must
+    lie within TOL of the exact product and be no less accurate (rms) than
+    the plain version's fp32 GEMM."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((257, 5632), generator=gen, device=dev).to(torch.bfloat16)
+    out = []
+    for ids_dtype, c in ((torch.int8, 128), (torch.int32, 1000)):
+        ids = torch.randint(0, c, (5632, 2048), generator=gen, device=dev).to(ids_dtype)
+        cb = torch.randn((c,), generator=gen, device=dev)
+        exact = x.double() @ cb.double()[ids.long()]
+        ys = {build.TENSOR_CORES: build.launch_clustered(x, ids, cb, "clustered_matmul_mma"),
+              build.CUDA_CORES: build.launch_clustered(x, ids, cb),
+              "plain": cm_kernel.clustered_matmul_plain(x, ids, cb)}
+        row = {"ids": str(ids_dtype).removeprefix("torch."), "codebook": c}
+        for name, y in ys.items():
+            d = y.double() - exact
+            row[name] = {"max_abs_err": d.abs().max().item(),
+                         "rms_err": d.pow(2).mean().sqrt().item()}
+        torch.testing.assert_close(ys[build.TENSOR_CORES].double(), exact, rtol=TOL, atol=TOL)
+        if row[build.TENSOR_CORES]["rms_err"] > row["plain"]["rms_err"]:
+            raise AssertionError(f"tensor-core route less accurate than the plain version: {row}")
+        out.append(row)
+    return out
+
+
+def _reset_routes() -> None:
+    for name in ROUTED:
+        LAYER_KERNELS[name]["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
 
 
 def _projection_weights(cfg, params) -> list[torch.Tensor]:
@@ -476,6 +541,7 @@ def phase_layer_path(eng, card: str) -> tuple[dict, dict]:
 
     for kn in LAYER_KERNELS.values():
         kn["wrapper"].launches = 0
+    _reset_routes()
     good = 0
     for mode, sc in configs.items():
         for s in (1, 64):
@@ -484,11 +550,16 @@ def phase_layer_path(eng, card: str) -> tuple[dict, dict]:
                 good += y.shape[:2] == (4, s) and y.dtype == torch.bfloat16
     torch.cuda.synchronize()
     launches = {name: kn["wrapper"].launches for name, kn in LAYER_KERNELS.items()}
+    routes = {name: dict(LAYER_KERNELS[name]["wrapper"].routes) for name in ROUTED}
     want = {"sonic_matvec": n, "sonic_matmul": n, "block_sparse_matmul": 2 * n,
             "clustered_matmul": 2 * n}
     if launches != want or good != 2 * n * len(configs):
         raise AssertionError(f"layer path: launches {launches}, want {want}; "
                              f"{good} well-shaped outputs")
+    # bf16 x: every launch of the two codebook matmuls on the tensor cores
+    if any(routes[name] != {build.TENSOR_CORES: want[name], build.CUDA_CORES: 0}
+           for name in ROUTED):
+        raise AssertionError(f"layer path: routes {routes}, want all on the tensor cores")
     errs = {}
     for mode, sc in configs.items():
         fallback = dataclasses.replace(sc, use_kernel=False)
@@ -502,7 +573,7 @@ def phase_layer_path(eng, card: str) -> tuple[dict, dict]:
                 torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
                 errs[mode] = max(errs[mode], (got - ref).abs().max().item())
     emit({"phase": "layer_path", "card": card, "projections": n,
-          "convert_seconds_first_second": seconds, "launches": launches,
+          "convert_seconds_first_second": seconds, "launches": launches, "routes": routes,
           "max_abs_err_vs_fallback_fp32": errs, "tolerance": TOL})
     return converted, launches
 
@@ -540,18 +611,36 @@ def phase_layer_timing(converted: dict, launches: dict, errs: dict) -> list[dict
                 n_bytes, n_ops = n_bytes + b, n_ops + ops
                 bound_s += max(b / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
 
-            def run(fn):
-                return lambda: [fn(xs[k], *args) for k, args in weights]
+            def run(fn, subset=weights):
+                return lambda: [fn(xs[k], *args) for k, args in subset]
 
+            if name in ROUTED:
+                kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
             row = {"rows": m, "ms": _step_ms(run(kn["wrapper"])),
                    "plain_ms": _step_ms(run(kn["plain"])), "bound_ms": bound_s * 1e3,
                    "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / BF16_TENSOR_FLOPS
                    else "operations",
                    "library_ms": _step_ms(
                        lambda: [xs[k] @ d for (k, _), d in zip(weights, dense[mode])])}
+            timing = {}
+            if name in ROUTED:
+                # the route the timed launches took; the three bf16 products
+                # per weight set the tensor-core route's floor; µs per launch
+                # of each projection shape, (K, N), timed on its own
+                routes = kn["wrapper"].routes
+                shapes = {}
+                for (k, args), d in zip(weights, dense[mode]):
+                    shapes.setdefault(f"{k}x{d.shape[1]}", []).append((k, args))
+                timing = {"route": max(routes, key=routes.get),
+                          "tflops": n_ops / (row["ms"] * 1e-3) / 1e12,
+                          "three_product_floor_ms": 3 * n_ops / BF16_TENSOR_FLOPS * 1e3,
+                          "previous_ms": PREVIOUS_MS.get((name, m)),
+                          "us_per_launch_by_shape": {
+                              shape: _step_ms(run(kn["wrapper"], sub)) * 1e3 / len(sub)
+                              for shape, sub in shapes.items()}}
             emit({"phase": "kernel_time", "name": name, "launches_per_step": len(weights),
                   "weight_bytes": sum(args[0].numel() * args[0].element_size()
-                                      for _, args in weights), **row})
+                                      for _, args in weights), **row, **timing})
             if entry is None:
                 entry = {"name": name, "route": "cuda", "source": kn["source"],
                          "replaces": kn["replaces"], "launches": launches[name],

@@ -2,13 +2,15 @@
 
 Every ``*.cu`` under ``src/repro_torch/csrc/`` is a kernel with a plain C
 entry point; the kernels' shared device code is ``block_sparse_kernels.cuh``
-beside them.  ``build()`` starts one ``nvcc -c`` per source, all at once,
-links the objects into one shared library under ``build/`` at the root of
-the checkout, and writes the compiler's output (``-Xptxas -v``: registers,
-shared memory, spills per kernel) beside it.  The library's name carries a
-hash of the sources, headers and flags, so an edited source never loads a
-stale build.  ``load_library()`` builds if needed, loads the library and
-declares each entry point's C signature (``SIGNATURES``).  The ``launch_*``
+(CUDA cores) and ``codebook_mma.cuh`` (tensor cores) beside them.
+``build()`` starts one ``nvcc -c`` per source, all at once, links the
+objects into one shared library under ``build/`` at the root of the
+checkout, and writes the compiler's output (``-Xptxas -v``: registers,
+shared memory, spills per kernel; each source's compile seconds head its
+section) beside it.  The library's name carries a hash of the sources,
+headers and flags, so an edited source never loads a stale build.
+``load_library()`` builds if needed, loads the library and declares each
+entry point's C signature (``SIGNATURES``).  The ``launch_*``
 functions check the operands, allocate y and launch on the current stream;
 each raises on what its kernels do not take and if the launch reports an
 error.
@@ -25,6 +27,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,19 +53,43 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #               workspace, workspace floats, B, knz, K, N, stream); its
 #               workspace holds one (B, N) partial sum per chunk of
 #               ``sparse_matvec_chunk_rows()`` idx rows (none for one chunk)
+# The ``*_mma`` entry points (the tensor-core route) take bf16 x only.
 _INT8 = [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]
 _CODEBOOK = [_P, _I, _P, _P, _I, _P, _P] + [_I] * 6 + [_P]
+_CLUSTERED = [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]
 SIGNATURES = {
     "sonic_matvec_int8": _INT8,
     "block_sparse_matmul_int8": _INT8,
     "sonic_matvec": _CODEBOOK,
     "sonic_matmul": _CODEBOOK,
+    "sonic_matmul_mma": _CODEBOOK,
     "block_sparse_matmul": [_P, _I, _P, _I, _P, _P] + [_I] * 6 + [_P],
-    "clustered_matmul": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P],
+    "clustered_matmul": _CLUSTERED,
+    "clustered_matmul_mma": _CLUSTERED,
     "sparse_matvec": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
     "sparse_matvec_chunk_rows": [],
 }
 MAX_CODEBOOK = {torch.int8: 128, torch.int32: 1024}  # centroids per id type
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+ROUTES = (TENSOR_CORES, CUDA_CORES)
+
+
+def codebook_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) -> str:
+    """Which kernel of a codebook matmul takes a launch: ``"tensor_cores"``
+    (``csrc/codebook_mma.cuh``: wgmma on bf16 tiles of 64 weight columns,
+    fed by TMA) or ``"cuda_cores"`` (``tiled_kernel``, fp32 FMAs).  It
+    depends on the block shape and x's type, never on M, so a row's result
+    does not depend on how many rows come with it.
+
+    The tensor cores take bf16 x whose tiles fit: for ``sonic_matmul`` (bk,
+    bn) blocks with bk a multiple of 16 and bn of 64; for
+    ``clustered_matmul`` (``dense``, bk = K, bn = N) N a multiple of 64 and
+    K of 8 (TMA reads x by rows whose stride must be a multiple of 16
+    bytes; the K edge of the last 64-row chunk arrives as zeros)."""
+    if x_dtype != torch.bfloat16:
+        return CUDA_CORES
+    fits = bn % 64 == 0 and (bk % 8 == 0 if dense else bk % 16 == 0)
+    return TENSOR_CORES if fits else CUDA_CORES
 
 
 def _sources() -> list[Path]:
@@ -93,24 +121,23 @@ def build() -> Path:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        jobs = []
-        for src in _sources():
+        t0 = time.perf_counter()
+
+        def compile_one(src: Path):
             obj = Path(tmp) / f"{src.stem}.o"
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((src, obj, proc))
-        logs, failed = [], []
-        for src, _, proc in jobs:
-            text, _ = proc.communicate()
-            logs.append(f"== {src.name}\n{text}")
-            if proc.returncode:
-                failed.append(src.name)
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return src, obj, proc, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max_workers=len(_sources())) as pool:
+            jobs = list(pool.map(compile_one, _sources()))
+        logs = [f"== {src.name} ({sec:.1f} s)\n{proc.stdout}" for src, _, proc, sec in jobs]
+        failed = [src.name for src, _, proc, _ in jobs if proc.returncode]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in jobs)],
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _, _ in jobs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"linking {out.name} failed:\n{link.stdout}")
@@ -192,6 +219,13 @@ def _check_codebook(name: str, x: torch.Tensor, codebook: torch.Tensor,
     return c
 
 
+def _check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core route reads x and the ids with TMA, whose global
+    addresses must be 16-byte aligned."""
+    if name.endswith("_mma") and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: x and the ids must be 16-byte aligned")
+
+
 def _call(name: str, *args) -> None:
     err = getattr(load_library(), name)(*args)
     if err:
@@ -215,10 +249,12 @@ def launch_int8(name: str, x: torch.Tensor, values: torch.Tensor,
 def launch_codebook(name: str, x: torch.Tensor, idx_values: torch.Tensor,
                     codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """y (M, Nb·bn) fp32 from the codebook block-sparse entry point ``name``
-    (int8 cluster ids, C ≤ 128 centroids).  The ids must lie in [0, C), as
-    the converters make them; checking would cost a pass over the weights."""
+    (int8 cluster ids, C ≤ 128 centroids; ``sonic_matmul_mma`` is the
+    tensor-core route).  The ids must lie in [0, C), as the converters make
+    them; checking would cost a pass over the weights."""
     m, k, nb, r, bk, bn = _check_blocks(name, x, idx_values, (torch.int8,), indices)
     c = _check_codebook(name, x, codebook, idx_values)
+    _check_tma(name, x, idx_values)
     y = torch.empty((m, nb * bn), dtype=torch.float32, device=x.device)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), idx_values.data_ptr(),
           codebook.data_ptr(), c, indices.data_ptr(), y.data_ptr(), m, k, nb, r, bk, bn,
@@ -238,10 +274,11 @@ def launch_fp(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor) -> t
     return y
 
 
-def launch_clustered(x: torch.Tensor, ids: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """y (M, N) fp32 from ``clustered_matmul`` (int8 or int32 ids (K, N) in
-    [0, C), unchecked as in ``launch_codebook``)."""
-    name = "clustered_matmul"
+def launch_clustered(x: torch.Tensor, ids: torch.Tensor, codebook: torch.Tensor,
+                     name: str = "clustered_matmul") -> torch.Tensor:
+    """y (M, N) fp32 from ``clustered_matmul`` or, on the tensor-core route,
+    ``clustered_matmul_mma`` (int8 or int32 ids (K, N) in [0, C), unchecked
+    as in ``launch_codebook``)."""
     _check_x(name, x)
     _check(name, x, ids, (torch.int8, torch.int32), "ids")
     m, k = x.shape
@@ -251,6 +288,7 @@ def launch_clustered(x: torch.Tensor, ids: torch.Tensor, codebook: torch.Tensor)
     c = _check_codebook(name, x, codebook, ids)
     if max(m * k, m * n, ids.numel()) >= 2**31:
         raise ValueError(f"{name}: operands past 2**31 elements")
+    _check_tma(name, x, ids)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), ids.data_ptr(),
           int(ids.dtype == torch.int32), codebook.data_ptr(), c, y.data_ptr(), m, k, n,

@@ -9,14 +9,30 @@
   blocks of int8 cluster ids looked up in a (C ≤ 128,) fp32 codebook.
 * ``sonic_matmul_kernel`` replaces ``sonic_matmul_pallas`` (``kernel.py:142``),
   CUDA source ``src/repro_torch/csrc/sonic_matmul.cu``: the same codebook
-  weights for M ≥ 8 rows.
+  weights for M ≥ 8 rows (any M on the card).
 
 The matvecs are bound by bytes on an H100 (each weight byte feeds at most 7
 multiply-adds): one thread block per (N-block, 32-column slice), the x rows
 of each kept block staged in shared memory, the int8 rows streamed once
 with coalesced 4-byte loads, fp32 accumulation, and a fixed-order
-shared-memory reduction with no atomics.  The matmul is the tiled kernel of
-``csrc/block_sparse_kernels.cuh``.
+shared-memory reduction with no atomics.
+
+The matmul has two routes, chosen by ``build.codebook_route`` from the block
+shape and x's type (never from M) and counted per route in
+``sonic_matmul_kernel.routes``:
+
+* ``"tensor_cores"`` (bf16 x, bk a multiple of 16, bn of 64):
+  ``csrc/codebook_mma.cuh``.  64 weight columns per thread block against a
+  tile of up to 256 tokens (yᵀ = Wᵀ xᵀ, so 4 rows pad to 8), each kept
+  block's ids and x slice TMA-loaded into a ring of shared-memory stages by
+  a producer warp, each centroid split into three bf16 parts
+  (``split_codebook_bf16``) so that three ``wgmma`` per k16 step carry the
+  fp32 centroid whole into a fresh fp32 tile per 64-row chunk, the chunks
+  summed on the CUDA cores.  Its floor at a 256-row
+  prefill of tinyllama-1.1b is the three products' tensor-core time, ~0.8
+  ms a step on an H100 (the bytes bound is ~0.35 ms).
+* ``"cuda_cores"`` (fp32 x, smaller blocks): the tiled kernel of
+  ``csrc/block_sparse_kernels.cuh``, fp32 FMAs.
 """
 from __future__ import annotations
 
@@ -81,6 +97,23 @@ def sonic_matmul_plain(
     return block_sparse_matmul_plain(x, codebook.float()[idx_values.long()], indices)
 
 
+def split_codebook_bf16(
+    codebook: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split fp32 centroids into three bf16 tensors that sum back to them:
+    hi = bf16(c), mid = bf16(c − hi), lo = bf16(c − hi − mid), each
+    difference exact in fp32.  hi + mid carries a centroid to within 2⁻¹⁶
+    relative, hi + mid + lo carries it whole; an all-zero codebook splits
+    into zeros.  The tensor-core kernels do the same arithmetic as each
+    thread block stages the codebook, and take the three parts (bf16 x is
+    exact, so x·lo + x·mid + x·hi summed in fp32 is an fp32 product)."""
+    c = codebook.float()
+    hi = c.bfloat16()
+    mid = (c - hi.float()).bfloat16()
+    lo = (c - hi.float() - mid.float()).bfloat16()
+    return hi, mid, lo
+
+
 def sonic_matvec_plain(
     x: torch.Tensor, idx_values: torch.Tensor, codebook: torch.Tensor, indices: torch.Tensor
 ) -> torch.Tensor:
@@ -115,12 +148,17 @@ def sonic_matmul_kernel(
     any M.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``sonic_matmul_kernel.launches``) or raises."""
+    of ``build.codebook_route``'s route (counted in
+    ``sonic_matmul_kernel.launches`` and ``.routes[route]``) or raises."""
     if x.device.type == "cpu":
         return sonic_matmul_plain(x, idx_values, codebook, indices)
-    y = build.launch_codebook("sonic_matmul", x, idx_values, codebook, indices)
+    route = build.codebook_route(idx_values.shape[-2], idx_values.shape[-1], x.dtype)
+    name = "sonic_matmul_mma" if route == build.TENSOR_CORES else "sonic_matmul"
+    y = build.launch_codebook(name, x, idx_values, codebook, indices)
     sonic_matmul_kernel.launches += 1
+    sonic_matmul_kernel.routes[route] += 1
     return y
 
 
 sonic_matmul_kernel.launches = 0
+sonic_matmul_kernel.routes = dict.fromkeys(build.ROUTES, 0)

@@ -618,3 +618,168 @@ def test_cuda_sparse_matvec_zero_deterministic_row_stable_and_unaligned(cuda):
     w = wt.float()[:, :512].contiguous()
     torch.testing.assert_close(smv_ops.topk_sparse_matmul(xs, w, k), xs @ w, rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------- the codebook matmuls' two routes (on the card)
+#
+# bf16 x takes the tensor-core kernel (csrc/codebook_mma.cuh) wherever its
+# tiles fit, fp32 x and small blocks the CUDA-core tiled kernel; both are
+# held to the plain versions at 1e-4 (fp32 both: the tensor-core route
+# carries each centroid whole in three bf16 parts, so only the order of the
+# fp32 sums differs), and the route counters say which one ran.
+
+MAIN_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+
+
+def _reset_routes(*fns):
+    for fn in fns:
+        fn.launches = 0
+        fn.routes = dict.fromkeys(build.ROUTES, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MAIN_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 8, 65, 257])
+def test_cuda_codebook_routes_match_plain_at_main_shapes(cuda, m, k, n):
+    """sonic_matmul ((128, 128) blocks, sparsity 0.5, int8 ids, C 64 and
+    128) and clustered_matmul (int8 ids with C 64 and 128, int32 ids with
+    C 1000) against their plain versions, bf16 x on the tensor cores and
+    fp32 x on the CUDA cores; centroids at the models' scale, K**-0.5
+    (``test_cuda_tensor_core_route_at_unit_scale`` takes unit centroids)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _reset_routes(sm_kernel.sonic_matmul_kernel, cm_kernel.clustered_matmul_kernel)
+    _, _, indices = _cuda_weight(k, n, (128, 128), 0.5, cuda)
+    cases = []
+    for c in (64, 128):
+        ids = torch.randint(0, c, (*indices.shape, 128, 128), generator=gen, device=cuda)
+        cb = torch.randn((c,), generator=gen, device=cuda) * k**-0.5
+        cases.append((sm_kernel.sonic_matmul_kernel, sm_kernel.sonic_matmul_plain,
+                      (ids.to(torch.int8), cb, indices)))
+    for ids_dtype, c in ((torch.int8, 64), (torch.int8, 128), (torch.int32, 1000)):
+        ids = torch.randint(0, c, (k, n), generator=gen, device=cuda).to(ids_dtype)
+        cb = torch.randn((c,), generator=gen, device=cuda) * k**-0.5
+        cases.append((cm_kernel.clustered_matmul_kernel, cm_kernel.clustered_matmul_plain,
+                      (ids, cb)))
+    for fn, plain, w in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+            got = fn(x, *w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, plain(x, *w), rtol=1e-4, atol=1e-4)
+    want = {"tensor_cores": 2, "cuda_cores": 2}
+    assert sm_kernel.sonic_matmul_kernel.routes == want
+    assert cm_kernel.clustered_matmul_kernel.routes == {"tensor_cores": 3, "cuda_cores": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1024, 2048])
+@pytest.mark.parametrize("m", [8, 257])
+def test_cuda_tensor_core_route_at_unit_scale(cuda, m, k):
+    """Unit-scale centroids (outputs up to ~4·sqrt(K)) on the tensor-core
+    route, 2048 columns, int8 and int32 ids: within 1e-4 of the plain
+    version.  The tensor cores truncate as they add; each 64-row chunk is
+    summed in a fresh tile and the chunks in fp32 on the CUDA cores."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    _reset_routes(cm_kernel.clustered_matmul_kernel)
+    for ids_dtype, c in ((torch.int8, 128), (torch.int32, 1000)):
+        ids = torch.randint(0, c, (k, 2048), generator=gen, device=cuda).to(ids_dtype)
+        cb = torch.randn((c,), generator=gen, device=cuda)
+        got = cm_kernel.clustered_matmul_kernel(x, ids, cb)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, cm_kernel.clustered_matmul_plain(x, ids, cb),
+                                   rtol=1e-4, atol=1e-4)
+    assert cm_kernel.clustered_matmul_kernel.routes["tensor_cores"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1024, 2048, 5632])
+@pytest.mark.parametrize("m", [8, 257])
+def test_cuda_tensor_core_route_against_fp64_at_unit_scale(cuda, m, k):
+    """The exact product (fp64) as the witness, unit-scale centroids, 2048
+    columns, int8 and int32 ids, K up to tinyllama's 5632: the tensor-core
+    route lies within 1e-4 of it, and its rms error is no larger than that
+    of the plain version's fp32 GEMM.  (Against the plain version itself
+    the two fp32 errors add, and miss 1e-4 on a few outputs at K = 5632.)"""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    _reset_routes(cm_kernel.clustered_matmul_kernel)
+    for ids_dtype, c in ((torch.int8, 128), (torch.int32, 1000)):
+        ids = torch.randint(0, c, (k, 2048), generator=gen, device=cuda).to(ids_dtype)
+        cb = torch.randn((c,), generator=gen, device=cuda)
+        exact = x.double() @ cb.double()[ids.long()]
+        got = cm_kernel.clustered_matmul_kernel(x, ids, cb).double()
+        plain = cm_kernel.clustered_matmul_plain(x, ids, cb).double()
+        torch.testing.assert_close(got, exact, rtol=1e-4, atol=1e-4)
+        rms = [(y - exact).pow(2).mean().sqrt().item() for y in (got, plain)]
+        assert rms[0] <= rms[1], rms
+    assert cm_kernel.clustered_matmul_kernel.routes["tensor_cores"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,route", [((16, 64), "tensor_cores"), ((32, 64), "tensor_cores"),
+                                         ((64, 128), "tensor_cores"), ((16, 16), "cuda_cores"),
+                                         ((128, 32), "cuda_cores"), ((8, 128), "cuda_cores")])
+@pytest.mark.parametrize("m", [1, 4, 8, 65, 257])
+def test_cuda_sonic_matmul_routes_by_block(cuda, m, block, route):
+    """Every kept-block size the tensor cores take (bk a multiple of 16, bn
+    of 64; chunks of min(bk, 64) K rows) and some they leave to the CUDA
+    cores, bf16 x, against the plain version."""
+    k, n = 512, 256
+    ids, codebook, indices = _cuda_codebook_weight(k, n, block, 0.5, cuda)
+    x = torch.randn((m, k), device=cuda, dtype=torch.bfloat16)
+    _reset_routes(sm_kernel.sonic_matmul_kernel)
+    got = sm_kernel.sonic_matmul_kernel(x, ids, codebook, indices)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sm_kernel.sonic_matmul_plain(x, ids, codebook, indices),
+                               rtol=1e-4, atol=1e-4)
+    assert sm_kernel.sonic_matmul_kernel.routes[route] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,route", [(1000, 192, "tensor_cores"), (8, 64, "tensor_cores"),
+                                       (520, 3200, "tensor_cores"), (1001, 192, "cuda_cores"),
+                                       (512, 96, "cuda_cores")])
+@pytest.mark.parametrize("m", [1, 4, 8, 65, 257])
+def test_cuda_clustered_matmul_routes_at_ragged_k(cuda, m, k, n, route):
+    """K not a multiple of the 64-row chunk (the edge arrives as zeros), and
+    shapes the tensor cores leave to the CUDA cores, bf16 x."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ids = torch.randint(0, 128, (k, n), generator=gen, device=cuda).to(torch.int8)
+    codebook = torch.randn((128,), generator=gen, device=cuda)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    _reset_routes(cm_kernel.clustered_matmul_kernel)
+    got = cm_kernel.clustered_matmul_kernel(x, ids, codebook)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, cm_kernel.clustered_matmul_plain(x, ids, codebook),
+                               rtol=1e-4, atol=1e-4)
+    assert cm_kernel.clustered_matmul_kernel.routes[route] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 8192])
+def test_cuda_tensor_core_route_deterministic_row_stable_and_zero(cuda, n):
+    """On the tensor-core route two runs agree bit for bit, a row's result is
+    the same at M = 1, 4, 8, 9, 40, 65, 128, 200, 257 and 300 (token tiles
+    of 8 to 256, chosen from M and the column tiles), and an all-zero
+    codebook gives exact zeros."""
+    k = 1024
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((300, k), generator=gen, device=cuda).to(torch.bfloat16)
+    ids, codebook, indices = _cuda_codebook_weight(k, n, (128, 128), 0.5, cuda)
+    runs = [(sm_kernel.sonic_matmul_kernel, (ids, codebook, indices),
+             (ids, torch.zeros_like(codebook), indices))]
+    for ids_dtype, c in ((torch.int8, 64), (torch.int32, 1000)):
+        dense = torch.randint(0, c, (k, n), generator=gen, device=cuda).to(ids_dtype)
+        cb = torch.randn((c,), generator=gen, device=cuda)
+        runs.append((cm_kernel.clustered_matmul_kernel, (dense, cb),
+                     (dense, torch.zeros_like(cb))))
+    for fn, w, zero in runs:
+        _reset_routes(fn)
+        a = fn(x, *w)
+        assert torch.equal(a, fn(x, *w))
+        for m in (1, 4, 8, 9, 40, 65, 128, 200, 257):
+            assert torch.equal(a[:m], fn(x[:m].contiguous(), *w)), m
+        for m in (4, 300):
+            assert (fn(x[:m].contiguous(), *zero) == 0).all()
+        assert fn.routes == {"tensor_cores": 13, "cuda_cores": 0}
