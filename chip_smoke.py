@@ -13,35 +13,47 @@ Phases, in order; any failure exits non-zero before the last line:
      version at the main path's projection shapes (128×128 blocks,
      sparsity 0.5) and at small blocks, fp32 and bf16 x, fp32 outputs held
      to rtol = atol = 1e-4 (the sums run in another order over up to 5632
-     terms); an all-zero weight must give exact zeros.
+     terms); an all-zero weight must give exact zeros.  block_sparse_matmul_int8
+     has two routes (``build.mma_route``: bf16 x on the tensor cores where
+     the blocks fit, the rest on the CUDA cores); both must have run.
   4. main path: tinyllama-1.1b at full width, random weights from a seeded
      generator on the card, quantized there to int8 block-sparse
      (sparsity 0.5), greedy batch 4 × prompt 64 × 32 new tokens through
      ``repro_torch.launch.serve``.  The launch counters are zeroed just
-     before and read just after; tokens must be in range and repeat on a
-     second run.  Then prefill ms, decode ms/token and tok/s (host clock,
-     medians of 7), and the card's busy time while generating 9 tokens
-     (torch.profiler) against the same call's wall time.
+     before and read just after, with the int8 matmul's route counters
+     (every prefill launch, bf16 x, on the tensor cores); tokens must be in
+     range and repeat on a second run.  Then prefill ms, decode ms/token and
+     tok/s (host clock, medians of 7), and the card's busy time while
+     generating 9 tokens and in one prefill (torch.profiler) against the
+     same calls' wall time.
   5. reference: the first two layers of the served model, fp32 compute,
-     prefill + 2 decode steps on the card (kernels) against the CPU (plain
-     versions), logits within 1e-4.
+     prefill + 2 decode steps on the card (kernels; the int8 matmul on the
+     CUDA cores) against the CPU (plain versions), logits within 1e-4; then
+     the same two layers in the served bf16 compute, every prefill
+     projection on the tensor cores, greedy prefill + 2 decode steps on
+     each side: the same tokens, logits within 2**-5 (two bf16 ulps at
+     |logit| < 4, the bound of tests/test_torch_engine.py's bf16 test).
   6. kernel times for one step's worth of launches on the served weights
      (155 projections: 22 layers × 7 + the LM head) — kernel, plain version,
      torch.matmul on the densified bf16 weight (a yardstick the port never
      calls) and the bound — each step captured in a CUDA graph and replayed
-     between CUDA events, so host launch overhead is left out.
+     between CUDA events, so host launch overhead is left out (``eager_ms``:
+     the same launches issued from Python, host clock); for the int8
+     matmul also the route the timed launches took, the achieved TFLOP/s,
+     the earlier time and µs per launch of each projection shape.
   7. the four kernels of the execution-mode layer (sonic_matvec,
      sonic_matmul, block_sparse_matmul, clustered_matmul) against their
      plain versions, as in phase 3: the five projection shapes at
      (128, 128) blocks and (512, 384) at blocks (1, 1), (16, 16), (32, 64);
      fp32 and bf16 x, fp32 and bf16 values, int8 and int32 ids; exact zeros
-     from an all-zero weight.  sonic_matmul and clustered_matmul have two
-     routes (``build.codebook_route``: bf16 x on the tensor cores where the
-     tiles fit, the rest on the CUDA cores); both must have run, and each
-     route's largest error is reported.  Then clustered_matmul's two routes
-     and its plain version against the exact (fp64) product at unit-scale
-     centroids, K = 5632, M = 257: the tensor-core route within 1e-4 of it
-     and no less accurate (rms) than the plain version.
+     from an all-zero weight.  sonic_matmul, block_sparse_matmul and
+     clustered_matmul have two routes (``build.mma_route``); both must have
+     run, and each route's largest error is reported.  Then the two routes
+     and the plain version of clustered_matmul (unit-scale centroids),
+     block_sparse_matmul (unit-scale fp32 values) and
+     block_sparse_matmul_int8 against the exact (fp64) product, K = 5632,
+     M = 257: each tensor-core route within 1e-4 of it, and for the three
+     parts of fp32 weights no less accurate (rms) than the plain version.
   8. layer path: the served model's seeded fp32 weights (all 155
      projections at full width) converted on the card by ``convert_linear``
      in modes "sonic", "block_sparse" and "clustered" (sparsity 0.5,
@@ -49,13 +61,13 @@ Phases, in order; any failure exits non-zero before the last line:
      bit for bit; then ``sonic_linear_apply(use_kernel=True)`` over all 155
      at x (4, 1, K) and (4, 64, K) in bf16, launch counters zeroed just
      before and read just after (155 per pass: decode rows on sonic_matvec
-     in mode "sonic", on the tiled kernels in the other two), with every
-     bf16 launch of sonic_matmul and clustered_matmul on the tensor-core
-     route; then each projection at fp32 x against ``use_kernel=False``
-     within 1e-4.
+     in mode "sonic", on the matmul kernels in the other two), with every
+     bf16 launch of sonic_matmul, block_sparse_matmul and clustered_matmul
+     on the tensor-core route; then each projection at fp32 x against
+     ``use_kernel=False`` within 1e-4.
   9. kernel times of the four, as in phase 6, on the weights of phase 8:
      sonic_matvec at M = 4, sonic_matmul at M = 256, block_sparse_matmul
-     and clustered_matmul at both; for the two codebook matmuls also the
+     and clustered_matmul at both; for the three routed matmuls also the
      route the timed launches took (their route counters), the achieved
      TFLOP/s (2·M·weights), the earlier time and µs per launch of each
      projection shape (the kernels line keeps the measured times only).
@@ -148,6 +160,7 @@ from repro_torch.utils.tree import tree_param_count  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
 TOL = 1e-4
+BF16_LOGIT_TOL = 2**-5  # two bf16 ulps at |logit| < 4 (tests/test_torch_engine.py's bound)
 MAIN_ARGS = ["--arch", "tinyllama-1.1b", "--weight-quant", "int8",
              "--weight-quant-sparsity", "0.5", "--batch", "4", "--prompt-len", "64",
              "--new-tokens", "32"]
@@ -185,11 +198,14 @@ LAYER_KERNELS = {
 }
 C3_KERNEL = dict(name="sparse_matvec", source="src/repro_torch/csrc/sparse_matvec.cu",
                  replaces="src/repro/kernels/sparse_matvec/kernel.py:40")
-# The two codebook matmuls' routes, and their times before the tensor-core
-# route (PR 13's chip run, NVIDIA H100 80GB HBM3, 700 W), by rows
-ROUTED = ("sonic_matmul", "clustered_matmul")
+# The layer kernels with two routes (block_sparse_matmul_int8, in KERNELS,
+# has them too), and the routed kernels' times on the CUDA cores before
+# their tensor-core route, by rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+ROUTED = ("sonic_matmul", "block_sparse_matmul", "clustered_matmul")
+INT8_MATMUL = "block_sparse_matmul_int8"
 PREVIOUS_MS = {("sonic_matmul", 256): 23.137, ("clustered_matmul", 256): 44.351,
-               ("clustered_matmul", 4): 17.647}
+               ("clustered_matmul", 4): 17.647, (INT8_MATMUL, 256): 22.515,
+               ("block_sparse_matmul", 256): 22.806, ("block_sparse_matmul", 4): 8.893}
 TOPK_FRAC = 0.25  # mode "topk"'s default kept fraction
 LAYER_MODES = ("sonic", "block_sparse", "clustered")
 LAYER_BLOCK = (128, 128)
@@ -222,6 +238,8 @@ def phase_kernels(dev: torch.device) -> dict[str, float]:
     cases = [(k, n, (128, 128), True) for k, n in MAIN_SHAPES]
     cases += [(512, 384, (16, 16), False), (512, 384, (32, 64), False)]
     errs = dict.fromkeys(KERNELS, 0.0)
+    int8_matmul = KERNELS[INT8_MATMUL]["wrapper"]
+    int8_matmul.routes = dict.fromkeys(build.ROUTES, 0)
     for k, n, block, main in cases:
         w = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
         q = make_block_sparse_int8(w, 0.5, block)
@@ -240,8 +258,11 @@ def phase_kernels(dev: torch.device) -> dict[str, float]:
         x = torch.randn((kn["rows"][1], 2048), device=dev, dtype=torch.bfloat16)
         if not (kn["wrapper"](x, zero.values, zero.scales, zero.indices) == 0).all():
             raise AssertionError("an all-zero weight gave nonzero outputs")
+    routes = {INT8_MATMUL: dict(int8_matmul.routes)}
+    if not all(routes[INT8_MATMUL].values()):
+        raise AssertionError(f"a route of {INT8_MATMUL} never ran: {routes}")
     emit({"phase": "kernels_vs_plain", "cases": len(cases), "tolerance": TOL,
-          "max_abs_err_main_shapes": errs})
+          "max_abs_err_main_shapes": errs, "routes": routes})
     return errs
 
 
@@ -258,17 +279,22 @@ def _seconds(fn, reps: int) -> float:
 
 def phase_main_path(card: str):
     args = serve.parse_args(MAIN_ARGS)
+    int8_matmul = KERNELS[INT8_MATMUL]["wrapper"]
     for kn in KERNELS.values():
         kn["wrapper"].launches = 0
+    int8_matmul.routes = dict.fromkeys(build.ROUTES, 0)
     eng = serve.build_engine(args)
     tokens = serve.run_batch(eng, args)
     launches = {name: kn["wrapper"].launches for name, kn in KERNELS.items()}
+    routes = {INT8_MATMUL: dict(int8_matmul.routes)}
     n_proj = eng.cfg.n_layers * len(PROJECTIONS) + 1
-    want = {"block_sparse_matmul_int8": n_proj,
-            "sonic_matvec_int8": n_proj * (args.new_tokens - 1)}
+    want = {INT8_MATMUL: n_proj, "sonic_matvec_int8": n_proj * (args.new_tokens - 1)}
     for name, least in want.items():
         if launches[name] < least:
             raise AssertionError(f"{name}: {launches[name]} launches < {least}")
+    # the served prefill runs bf16 x: every launch on the tensor cores
+    if routes[INT8_MATMUL] != {build.TENSOR_CORES: launches[INT8_MATMUL], build.CUDA_CORES: 0}:
+        raise AssertionError(f"main path: routes {routes}, want all on the tensor cores")
     if tokens.shape != (args.batch, args.new_tokens) or not (
             (tokens >= 0) & (tokens < eng.cfg.vocab_size)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
@@ -277,7 +303,7 @@ def phase_main_path(card: str):
     prompts = serve.make_prompts(args, eng.cfg.vocab_size)
     t_prefill = _seconds(lambda: eng.generate(prompts, 1), 7)
     t_all = _seconds(lambda: eng.generate(prompts, args.new_tokens), 7)
-    emit({"phase": "main_path", "card": card, "launches": launches,
+    emit({"phase": "main_path", "card": card, "launches": launches, "routes": routes,
           "prefill_ms": t_prefill * 1e3,
           "decode_ms_per_token": (t_all - t_prefill) * 1e3 / (args.new_tokens - 1),
           "tok_s": args.batch * args.new_tokens / t_all,
@@ -285,53 +311,95 @@ def phase_main_path(card: str):
     return eng, args, launches
 
 
+def _device_kernels(fn) -> list:
+    """The device kernels of one call of fn() under torch.profiler, by name."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def phase_profile(eng, args, card: str, n_new: int = 9) -> None:
     """Where generation spends the card's time: one ``generate`` of
-    ``n_new`` tokens under torch.profiler (device busy time, by kernel),
-    against the median wall time of the same call without the profiler."""
+    ``n_new`` tokens, and one prefill (``generate`` of 1 token), under
+    torch.profiler (device busy time, by kernel), each against the median
+    wall time of the same call without the profiler."""
     prompts = serve.make_prompts(args, eng.cfg.vocab_size)
-    wall = _seconds(lambda: eng.generate(prompts, n_new), 5)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompts, n_new)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    emit({"phase": "profile", "card": card, "new_tokens": n_new, "wall_ms": wall * 1e3,
-          "device_busy_ms": busy_ms or None,  # None: the profiler saw no device time
-          "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms else None,
-          "kernel_launches": sum(e.count for e in kernels),
-          "top_kernels": [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
-                           "launches": e.count} for e in top]})
+    out = {}
+    for n in (n_new, 1):
+        wall = _seconds(lambda: eng.generate(prompts, n), 5)
+        kernels = _device_kernels(lambda: eng.generate(prompts, n))
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        out[n] = {"wall_ms": wall * 1e3,
+                  "device_busy_ms": busy_ms or None,  # None: the profiler saw no device time
+                  "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms else None,
+                  "kernel_launches": sum(e.count for e in kernels)}
+        if n == n_new:
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+            out[n]["top_kernels"] = [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
+                                      "launches": e.count} for e in top]
+    emit({"phase": "profile", "card": card, "new_tokens": n_new, **out[n_new],
+          "prefill": out[1]})
 
 
 def _tree(fn, tree):
     return {k: _tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _two_layer_run(params, cfg, tokens, dev, dtype, greedy: bool):
+    """Prefill of ``tokens`` (2 × 8) then 2 decode steps on ``dev``: the
+    last logits of each (fp32, on the CPU) and each one's greedy token.  The
+    decode steps are fed the greedy tokens when ``greedy``, else the
+    prompt's first two columns (the same on every side)."""
+    cache = transformer.init_cache(cfg, 2, 16, dev, dtype=dtype)
+    lg, cache = transformer.forward(params, cfg, tokens=tokens.to(dev), cache=cache)
+    logits = [lg[:, -1]]
+    for step in range(2):
+        nxt = (logits[-1].argmax(-1, keepdim=True) if greedy
+               else tokens[:, step:step + 1].to(dev))
+        pos = torch.full((2,), 8 + step, device=dev)
+        lg, cache = transformer.forward(params, cfg, tokens=nxt, cache=cache, cache_pos=pos)
+        logits.append(lg[:, 0])
+    logits = torch.stack(logits).float().cpu()
+    return logits, logits.argmax(-1)
+
+
 def phase_reference(eng, depth: int = 2) -> None:
-    """The served model cut to ``depth`` layers, fp32 compute: kernels on
-    the card against plain versions on the CPU."""
-    cfg = eng.cfg.replace(n_layers=depth, compute_dtype="float32")
+    """The served model cut to ``depth`` layers: kernels on the card against
+    plain versions on the CPU.  In fp32 compute (x fp32, so the int8 matmul
+    takes the CUDA cores) the logits within TOL; in the served bf16 compute
+    (every prefill projection on the tensor cores) the same greedy tokens
+    and logits within BF16_LOGIT_TOL."""
     card = {**eng.params, "layers": _tree(lambda a: a[:depth], eng.params["layers"])}
     cpu = _tree(lambda a: a.cpu(), card)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(3))
-    outs = []
-    for params, dev in ((card, eng.device), (cpu, torch.device("cpu"))):
-        cache = transformer.init_cache(cfg, 2, 16, dev, dtype=torch.float32)
-        lg, cache = transformer.forward(params, cfg, tokens=tokens.to(dev), cache=cache)
-        logits = [lg[:, -1]]
-        for step in range(2):  # decode steps fed the same tokens on both sides
-            pos = torch.full((2,), 8 + step, device=dev)
-            lg, cache = transformer.forward(params, cfg, tokens=tokens[:, step:step + 1].to(dev),
-                                            cache=cache, cache_pos=pos)
-            logits.append(lg[:, 0])
-        outs.append(torch.stack(logits).cpu())
-    err = (outs[0] - outs[1]).abs().max().item()
-    torch.testing.assert_close(outs[0], outs[1], rtol=TOL, atol=TOL)
-    emit({"phase": "reference", "layers": depth, "max_abs_logit_err": err,
-          "tolerance": TOL})
+    tokens = torch.randint(0, eng.cfg.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(3))
+    int8_matmul = KERNELS[INT8_MATMUL]["wrapper"]
+    prefill = depth * len(PROJECTIONS) + 1  # int8 matmul launches of one prefill
+    out = {"phase": "reference", "layers": depth}
+    for dtype, tol, route in ((torch.float32, TOL, build.CUDA_CORES),
+                              (torch.bfloat16, BF16_LOGIT_TOL, build.TENSOR_CORES)):
+        cfg = eng.cfg.replace(n_layers=depth, compute_dtype=str(dtype).removeprefix("torch."))
+        int8_matmul.routes = dict.fromkeys(build.ROUTES, 0)
+        greedy = dtype == torch.bfloat16
+        (lc, tc), (lp, tp) = (_two_layer_run(params, cfg, tokens, dev, dtype, greedy)
+                              for params, dev in ((card, eng.device), (cpu, torch.device("cpu"))))
+        routes = dict(int8_matmul.routes)
+        if routes != {**dict.fromkeys(build.ROUTES, 0), route: prefill}:
+            raise AssertionError(f"reference ({dtype}): routes {routes}, want {prefill} on {route}")
+        if greedy and not torch.equal(tc, tp):
+            raise AssertionError(f"reference ({dtype}): greedy tokens {tc.tolist()} on the card, "
+                                 f"{tp.tolist()} on the CPU")
+        torch.testing.assert_close(lc, lp, rtol=0 if greedy else tol, atol=tol)
+        row = {"max_abs_logit_err": (lc - lp).abs().max().item(), "tolerance": tol,
+               "routes": routes}
+        if greedy:
+            out["bf16"] = {**row, "max_abs_logit": lp.abs().max().item(),
+                           "greedy_tokens_equal": True}
+        else:
+            out.update(row)
+    emit(out)
 
 
 def _step_ms(fn, reps: int = 10) -> float:
@@ -377,9 +445,11 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
             n_bytes, n_ops = n_bytes + b, n_ops + ops
             bound_s += max(b / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
 
-        def run(fn):
-            return lambda: [fn(xs[k], v, s, ix) for k, v, s, ix in weights]
+        def run(fn, subset=weights):
+            return lambda: [fn(xs[k], v, s, ix) for k, v, s, ix in subset]
 
+        if name == INT8_MATMUL:
+            kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
         entry = {
             "name": name, "route": "cuda", "source": kn["source"], "replaces": kn["replaces"],
             "launches": launches[name], "max_abs_err": errs[name], "rows": m,
@@ -390,11 +460,35 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
             else "operations",
             "library_ms": _step_ms(lambda: [xs[k] @ d for (k, *_), d in zip(weights, dense)]),
         }
+        timing = {}
+        if name == INT8_MATMUL:
+            shapes = {}
+            for w in weights:
+                shapes.setdefault(f"{w[0]}x{w[1].shape[0] * w[1].shape[3]}", []).append(w)
+            timing = _route_timing(name, m, kn["wrapper"], n_ops, entry["ms"], shapes,
+                                   lambda sub: _step_ms(run(kn["wrapper"], sub)))
+        # the same launches issued one by one from Python (host clock, ended
+        # by a synchronize): above kernel_ms, the wrappers are host-bound
+        eager_ms = _seconds(run(kn["wrapper"]), 5) * 1e3
         emit({"phase": "kernel_time", "rows": m, "launches_per_step": len(weights),
               "kept_weight_bytes": sum(v.numel() for _, v, _, _ in weights),
-              "kernel_ms": entry["ms"], **{k: v for k, v in entry.items() if k != "ms"}})
+              "kernel_ms": entry["ms"], **{k: v for k, v in entry.items() if k != "ms"},
+              "eager_ms": eager_ms, **timing})
         out.append(entry)
     return out
+
+
+def _route_timing(name: str, m: int, wrapper, n_ops: float, ms: float, shapes: dict,
+                  time_subset) -> dict:
+    """What a routed kernel's timing line adds: the route its timed launches
+    took (its route counters, zeroed before the timing), the achieved
+    TFLOP/s (2·M·weights), its time before the tensor-core route and µs per
+    launch of each projection shape, (K, N), timed on its own."""
+    routes = wrapper.routes
+    return {"route": max(routes, key=routes.get), "tflops": n_ops / (ms * 1e-3) / 1e12,
+            "previous_ms": PREVIOUS_MS.get((name, m)),
+            "us_per_launch_by_shape": {shape: time_subset(sub) * 1e3 / len(sub)
+                                       for shape, sub in shapes.items()}}
 
 
 def _layer_weights(k: int, n: int, block, gen, dev) -> list[tuple[str, tuple]]:
@@ -451,7 +545,7 @@ def phase_layer_kernels(dev: torch.device) -> dict[str, float]:
             raise AssertionError("an all-zero weight gave nonzero outputs")
     routes = {name: dict(LAYER_KERNELS[name]["wrapper"].routes) for name in ROUTED}
     if not all(v > 0 for r in routes.values() for v in r.values()):
-        raise AssertionError(f"a route of the codebook matmuls never ran: {routes}")
+        raise AssertionError(f"a route of the routed matmuls never ran: {routes}")
     emit({"phase": "layer_kernels_vs_plain", "cases": len(cases), "checks": n_checks,
           "tolerance": TOL, "max_abs_err_main_shapes": errs, "routes": routes,
           "max_abs_err_by_route": route_errs, "fp64_witness": _fp64_witness(dev)})
@@ -459,28 +553,47 @@ def phase_layer_kernels(dev: torch.device) -> dict[str, float]:
 
 
 def _fp64_witness(dev: torch.device) -> list[dict]:
-    """clustered_matmul's two routes and its plain version against the
-    exact (fp64) product, unit-scale centroids, K = 5632, M = 257, 2048
-    columns, bf16 x: max and rms |Δ| of each.  The tensor-core route must
-    lie within TOL of the exact product and be no less accurate (rms) than
-    the plain version's fp32 GEMM."""
+    """The two routes and the plain version of clustered_matmul (unit-scale
+    centroids, int8 and int32 ids), block_sparse_matmul (unit-scale fp32
+    values) and block_sparse_matmul_int8 (unit-scale weights), (128, 128)
+    blocks at sparsity 0.5, against the exact (fp64) product, K = 5632,
+    M = 257, 2048 columns, bf16 x: max and rms |Δ| of each.  Each
+    tensor-core route must lie within TOL of the exact product; the three
+    bf16 parts of an fp32 weight must be no less accurate (rms) than the
+    plain version's fp32 GEMM."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn((257, 5632), generator=gen, device=dev).to(torch.bfloat16)
-    out = []
+    k, n = 5632, 2048
+    x = torch.randn((257, k), generator=gen, device=dev).to(torch.bfloat16)
+    cases = []  # (row label, exact, {route or "plain": y}, whether rms is held)
     for ids_dtype, c in ((torch.int8, 128), (torch.int32, 1000)):
-        ids = torch.randint(0, c, (5632, 2048), generator=gen, device=dev).to(ids_dtype)
+        ids = torch.randint(0, c, (k, n), generator=gen, device=dev).to(ids_dtype)
         cb = torch.randn((c,), generator=gen, device=dev)
-        exact = x.double() @ cb.double()[ids.long()]
         ys = {build.TENSOR_CORES: build.launch_clustered(x, ids, cb, "clustered_matmul_mma"),
               build.CUDA_CORES: build.launch_clustered(x, ids, cb),
               "plain": cm_kernel.clustered_matmul_plain(x, ids, cb)}
-        row = {"ids": str(ids_dtype).removeprefix("torch."), "codebook": c}
+        cases.append(({"kernel": "clustered_matmul", "ids": str(ids_dtype).removeprefix("torch."),
+                       "codebook": c}, x.double() @ cb.double()[ids.long()], ys, True))
+    q = make_block_sparse_int8(torch.randn((k, n), generator=gen, device=dev), 0.5, (128, 128))
+    fp = q.values.float() * q.scales[:, :, None, None]
+    exact = x.double() @ BlockSparseWeightInt8(q.values, q.scales, q.indices,
+                                               k // 128).dense(torch.float64)
+    cases.append(({"kernel": "block_sparse_matmul", "values": "float32"}, exact,
+                  {build.TENSOR_CORES: build.launch_fp(x, fp, q.indices, "block_sparse_matmul_mma"),
+                   build.CUDA_CORES: build.launch_fp(x, fp, q.indices),
+                   "plain": bs_kernel.block_sparse_matmul_plain(x, fp, q.indices)}, True))
+    w8 = (q.values, q.scales, q.indices)
+    cases.append(({"kernel": INT8_MATMUL, "values": "int8"}, exact,
+                  {build.TENSOR_CORES: build.launch_int8(f"{INT8_MATMUL}_mma", x, *w8),
+                   build.CUDA_CORES: build.launch_int8(INT8_MATMUL, x, *w8),
+                   "plain": bs_kernel.block_sparse_matmul_int8_plain(x, *w8)}, False))
+    out = []
+    for row, exact, ys, hold_rms in cases:
         for name, y in ys.items():
             d = y.double() - exact
             row[name] = {"max_abs_err": d.abs().max().item(),
                          "rms_err": d.pow(2).mean().sqrt().item()}
         torch.testing.assert_close(ys[build.TENSOR_CORES].double(), exact, rtol=TOL, atol=TOL)
-        if row[build.TENSOR_CORES]["rms_err"] > row["plain"]["rms_err"]:
+        if hold_rms and row[build.TENSOR_CORES]["rms_err"] > row["plain"]["rms_err"]:
             raise AssertionError(f"tensor-core route less accurate than the plain version: {row}")
         out.append(row)
     return out
@@ -556,7 +669,7 @@ def phase_layer_path(eng, card: str) -> tuple[dict, dict]:
     if launches != want or good != 2 * n * len(configs):
         raise AssertionError(f"layer path: launches {launches}, want {want}; "
                              f"{good} well-shaped outputs")
-    # bf16 x: every launch of the two codebook matmuls on the tensor cores
+    # bf16 x: every launch of the three routed matmuls on the tensor cores
     if any(routes[name] != {build.TENSOR_CORES: want[name], build.CUDA_CORES: 0}
            for name in ROUTED):
         raise AssertionError(f"layer path: routes {routes}, want all on the tensor cores")
@@ -624,20 +737,14 @@ def phase_layer_timing(converted: dict, launches: dict, errs: dict) -> list[dict
                        lambda: [xs[k] @ d for (k, _), d in zip(weights, dense[mode])])}
             timing = {}
             if name in ROUTED:
-                # the route the timed launches took; the three bf16 products
-                # per weight set the tensor-core route's floor; µs per launch
-                # of each projection shape, (K, N), timed on its own
-                routes = kn["wrapper"].routes
+                # three bf16 products per fp32 weight set the tensor-core
+                # route's floor (one per bf16 value)
                 shapes = {}
                 for (k, args), d in zip(weights, dense[mode]):
                     shapes.setdefault(f"{k}x{d.shape[1]}", []).append((k, args))
-                timing = {"route": max(routes, key=routes.get),
-                          "tflops": n_ops / (row["ms"] * 1e-3) / 1e12,
-                          "three_product_floor_ms": 3 * n_ops / BF16_TENSOR_FLOPS * 1e3,
-                          "previous_ms": PREVIOUS_MS.get((name, m)),
-                          "us_per_launch_by_shape": {
-                              shape: _step_ms(run(kn["wrapper"], sub)) * 1e3 / len(sub)
-                              for shape, sub in shapes.items()}}
+                timing = {**_route_timing(name, m, kn["wrapper"], n_ops, row["ms"], shapes,
+                                          lambda sub: _step_ms(run(kn["wrapper"], sub))),
+                          "three_product_floor_ms": 3 * n_ops / BF16_TENSOR_FLOPS * 1e3}
             emit({"phase": "kernel_time", "name": name, "launches_per_step": len(weights),
                   "weight_bytes": sum(args[0].numel() * args[0].element_size()
                                       for _, args in weights), **row, **timing})

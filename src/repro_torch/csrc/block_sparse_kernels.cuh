@@ -38,12 +38,12 @@
 //
 // Neither shape splits K: each output is one fp32 chain over (r, k) in
 // ascending order, so a row's result depends neither on M nor on the tile.
-// Both run their products on the CUDA cores in fp32.  For bf16 x the two
-// codebook matmuls (clustered_matmul, sonic_matmul) take the tensor-core
-// kernel of codebook_mma.cuh instead (wgmma, TMA loads into a ring of
-// stages, a producer warp) wherever its tiles fit; tiled_kernel stays their
-// route for fp32 x and small blocks, and the only route of the int8 and fp
-// block-sparse matmuls, whose wgmma redesign is later work.
+// Both run their products on the CUDA cores in fp32.  For bf16 x the four
+// matmuls (clustered_matmul, sonic_matmul, block_sparse_matmul and
+// block_sparse_matmul_int8) take the tensor-core kernel of block_mma.cuh
+// instead (wgmma, TMA loads into a ring of stages, a producer warp; the
+// same weight policies) wherever its tiles fit; tiled_kernel stays their
+// route for fp32 x and small blocks.
 //
 // Everything here has internal linkage: each .cu file instantiates what its
 // entry point launches.

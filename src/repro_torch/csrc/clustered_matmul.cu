@@ -15,16 +15,16 @@
 // 256-row prefill by operations (~0.55 ms; ~1.6 ms for the three bf16
 // products per weight that the tensor-core route issues).
 //
-// Two entry points, one per route (kernels/build.py codebook_route picks):
+// Two entry points, one per route (kernels/build.py mma_route picks):
 //
 //  * clustered_matmul_mma, the tensor-core route, for bf16 x with K % 8 == 0
-//    and N % 64 == 0: the dense case of mma_codebook_kernel in
-//    codebook_mma.cuh.  64 weight columns per thread block against a tile of
-//    8 to 256 tokens, K walked in 64-row chunks through a ring of TMA-fed
-//    shared-memory stages, each centroid split into three bf16 parts (hi,
-//    mid, lo) and three wgmma per k16 step into a fresh fp32 tile per
-//    chunk, the chunks summed on the CUDA cores; the K edge and rows past M
-//    arrive as zeros.
+//    and N % 64 == 0: the dense case of mma_kernel in block_mma.cuh with the
+//    Codebook<int8> or Codebook<int32> weight policy.  64 weight columns
+//    per thread block against a tile of 8 to 256 tokens, K walked in 64-row
+//    chunks through a ring of TMA-fed shared-memory stages, each centroid
+//    split into three bf16 parts (hi, mid, lo) and three wgmma per k16 step
+//    into a fresh fp32 tile per chunk, the chunks summed on the CUDA cores;
+//    the K edge and rows past M arrive as zeros.
 //  * clustered_matmul, the CUDA-core route, for fp32 x and every other
 //    shape: the dense case of tiled_kernel in block_sparse_kernels.cuh: one
 //    "N-block" of width N, K cut into blocks of bk = the largest power of
@@ -35,7 +35,7 @@
 //
 // Neither splits K, so a row's result does not depend on M.
 
-#include "codebook_mma.cuh"
+#include "block_mma.cuh"
 
 namespace {
 

@@ -16,16 +16,17 @@
 // the tensor-core route's three bf16 products per weight put its
 // operations floor at ~0.8 ms.
 //
-// Two entry points, one per route (kernels/build.py codebook_route picks):
+// Two entry points, one per route (kernels/build.py mma_route picks):
 //
 //  * sonic_matmul_mma, the tensor-core route, for bf16 x with bk % 16 == 0
-//    and bn % 64 == 0: the block-sparse case of mma_codebook_kernel in
-//    codebook_mma.cuh.  64 columns of an N-block per thread block against a
-//    tile of 8 to 256 tokens; the producer reads the tile's kept-block ids
-//    and TMA-loads each kept block's ids and x slice, min(bk, 64) K rows a
-//    stage, into a ring of shared-memory stages; the consumers dequantize
-//    into hi / mid / lo bf16 A fragments and issue three wgmma per k16 step
-//    into a fresh fp32 tile per chunk, the chunks summed on the CUDA cores.
+//    and bn % 64 == 0: the block-sparse case of mma_kernel in block_mma.cuh
+//    with the Codebook<int8> weight policy.  64 columns of an N-block per
+//    thread block against a tile of 8 to 256 tokens; the producer reads the
+//    tile's kept-block ids and TMA-loads each kept block's ids and x slice,
+//    min(bk, 64) K rows a stage, into a ring of shared-memory stages; the
+//    consumers dequantize into hi / mid / lo bf16 A fragments and issue
+//    three wgmma per k16 step into a fresh fp32 tile per chunk, the chunks
+//    summed on the CUDA cores.
 //  * sonic_matmul, the CUDA-core route, for fp32 x and small blocks:
 //    tiled_kernel in block_sparse_kernels.cuh with the Codebook<int8> weight
 //    policy (the codebook staged in shared memory, each 32-row chunk turned
@@ -34,7 +35,7 @@
 //
 // Neither splits K, so a row's result does not depend on M.
 
-#include "codebook_mma.cuh"
+#include "block_mma.cuh"
 
 extern "C" int sonic_matmul(const void* x, int x_is_bf16, const int8_t* idx_values,
                             const float* codebook, int C, const int* indices, float* y, int M,
@@ -53,6 +54,7 @@ extern "C" int sonic_matmul_mma(const void* x, int x_is_bf16, const int8_t* idx_
                                 const float* codebook, int C, const int* indices, float* y, int M,
                                 int K, int Nb, int R, int bk, int bn, cudaStream_t stream) {
   if (!x_is_bf16) return cudaErrorInvalidValue;
-  return mma::launch_sparse(static_cast<const __nv_bfloat16*>(x), idx_values, codebook, C,
-                            indices, y, M, K, Nb, R, bk, bn, stream);
+  return mma::launch_sparse<Codebook<int8_t>>(static_cast<const __nv_bfloat16*>(x), idx_values,
+                                              codebook, C, nullptr, indices, y, M, K, Nb, R, bk,
+                                              bn, stream);
 }

@@ -8,12 +8,29 @@ dequantized against one fp32 scale each.  ``block_sparse_matmul_kernel``
 replaces ``block_sparse_matmul_pallas`` (``kernel.py:40``), CUDA source
 ``src/repro_torch/csrc/block_sparse_matmul.cu``: fp32 or bf16 kept blocks.
 
-Both are the tiled kernel of ``csrc/block_sparse_kernels.cuh``: one thread
-block per (column tile, 32-row tile of x), kept blocks walked in ascending
-order through shared memory, fp32 register tiles, the ragged M edge masked
-in the kernel, no split-K.  Their sources give the bound on an H100: the
-larger of the bytes over 3.35 TB/s and 2·M·kept weights over the 989
-TFLOP/s bf16 tensor-core peak.
+Both have two routes, chosen by ``build.mma_route`` from the block shape
+and x's type (never from M) and counted per route in each wrapper's
+``.routes``:
+
+* ``"tensor_cores"`` (bf16 x, bk a multiple of 16, bn of 64):
+  ``csrc/block_mma.cuh``, the kernel of the two codebook matmuls with
+  another weight policy.  64 weight columns per thread block against a
+  tile of up to 256 tokens, each kept block's values and x slice
+  TMA-loaded into a ring of shared-memory stages by a producer warp, one
+  fresh fp32 tile per 64-row chunk summed on the CUDA cores.  An int8 value
+  is exact in one bf16 part (one ``wgmma`` per k16 step), and each chunk's
+  tile is added times its kept block's scale (s·(x @ w) per chunk, where
+  the reference takes x @ (w·s)); an fp32 value is split into three bf16
+  parts as ``split_codebook_bf16`` splits a centroid (three ``wgmma``), a
+  bf16 value is one part.
+* ``"cuda_cores"`` (fp32 x, smaller blocks such as ``serve_quant``'s 16×16):
+  the tiled kernel of ``csrc/block_sparse_kernels.cuh``, one thread block
+  per (column tile, 32-row tile of x), kept blocks walked in ascending
+  order through shared memory, fp32 FMAs.
+
+Neither splits K, and the ragged M edge is masked in the kernel.  The
+sources give the bound on an H100: the larger of the bytes over 3.35 TB/s
+and 2·M·kept weights over the 989 TFLOP/s bf16 tensor-core peak.
 """
 from __future__ import annotations
 
@@ -41,16 +58,22 @@ def block_sparse_matmul_int8_kernel(
     """y (M, Nb·bn) fp32 = x (M, K) @ the int8 block-sparse weight.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``block_sparse_matmul_int8_kernel.launches``)
-    or raises."""
+    of ``build.mma_route``'s route (counted in
+    ``block_sparse_matmul_int8_kernel.launches`` and ``.routes[route]``) or
+    raises."""
     if x.device.type == "cpu":
         return block_sparse_matmul_int8_plain(x, values, scales, indices)
-    y = build.launch_int8("block_sparse_matmul_int8", x, values, scales, indices)
+    route = build.mma_route(values.shape[-2], values.shape[-1], x.dtype)
+    name = ("block_sparse_matmul_int8_mma" if route == build.TENSOR_CORES
+            else "block_sparse_matmul_int8")
+    y = build.launch_int8(name, x, values, scales, indices)
     block_sparse_matmul_int8_kernel.launches += 1
+    block_sparse_matmul_int8_kernel.routes[route] += 1
     return y
 
 
 block_sparse_matmul_int8_kernel.launches = 0
+block_sparse_matmul_int8_kernel.routes = dict.fromkeys(build.ROUTES, 0)
 
 
 def block_sparse_matmul_plain(
@@ -73,13 +96,20 @@ def block_sparse_matmul_kernel(
     """y (M, Nb·bn) fp32 = x (M, K) @ the fp block-sparse weight, any M.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``block_sparse_matmul_kernel.launches``) or
+    of ``build.mma_route``'s route (counted in
+    ``block_sparse_matmul_kernel.launches`` and ``.routes[route]``) or
     raises."""
     if x.device.type == "cpu":
         return block_sparse_matmul_plain(x, values, indices)
-    y = build.launch_fp(x, values, indices)
+    route = build.mma_route(values.shape[-2], values.shape[-1], x.dtype)
+    if route == build.TENSOR_CORES:
+        y = build.launch_fp(x, values, indices, "block_sparse_matmul_mma")
+    else:
+        y = build.launch_fp(x, values, indices)
     block_sparse_matmul_kernel.launches += 1
+    block_sparse_matmul_kernel.routes[route] += 1
     return y
 
 
 block_sparse_matmul_kernel.launches = 0
+block_sparse_matmul_kernel.routes = dict.fromkeys(build.ROUTES, 0)

@@ -13,10 +13,11 @@ def block_sparse_matmul(
     *,
     bm: int = 256,
 ) -> torch.Tensor:
-    """fp block-sparse x @ W → (..., N) in x.dtype, every M through the tiled
-    kernel.  ``bm`` is the reference's M tile, kept for its signature: the
-    kernel picks its own tiles and masks the ragged M edge, and no row's
-    result depends on the tiling, so ``bm`` does not change the result."""
+    """fp block-sparse x @ W → (..., N) in x.dtype, every M through one
+    kernel (its route by the block shape and x's type).  ``bm`` is the
+    reference's M tile, kept for its signature: the kernel picks its own
+    tiles and masks the ragged M edge, and no row's result depends on the
+    tiling, so ``bm`` does not change the result."""
     del bm
     lead = x.shape[:-1]
     k = x.shape[-1]

@@ -2,7 +2,7 @@
 
 Every ``*.cu`` under ``src/repro_torch/csrc/`` is a kernel with a plain C
 entry point; the kernels' shared device code is ``block_sparse_kernels.cuh``
-(CUDA cores) and ``codebook_mma.cuh`` (tensor cores) beside them.
+(CUDA cores) and ``block_mma.cuh`` (tensor cores) beside them.
 ``build()`` starts one ``nvcc -c`` per source, all at once, links the
 objects into one shared library under ``build/`` at the root of the
 checkout, and writes the compiler's output (``-Xptxas -v``: registers,
@@ -56,14 +56,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # The ``*_mma`` entry points (the tensor-core route) take bf16 x only.
 _INT8 = [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]
 _CODEBOOK = [_P, _I, _P, _P, _I, _P, _P] + [_I] * 6 + [_P]
+_FP = [_P, _I, _P, _I, _P, _P] + [_I] * 6 + [_P]
 _CLUSTERED = [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]
 SIGNATURES = {
     "sonic_matvec_int8": _INT8,
     "block_sparse_matmul_int8": _INT8,
+    "block_sparse_matmul_int8_mma": _INT8,
     "sonic_matvec": _CODEBOOK,
     "sonic_matmul": _CODEBOOK,
     "sonic_matmul_mma": _CODEBOOK,
-    "block_sparse_matmul": [_P, _I, _P, _I, _P, _P] + [_I] * 6 + [_P],
+    "block_sparse_matmul": _FP,
+    "block_sparse_matmul_mma": _FP,
     "clustered_matmul": _CLUSTERED,
     "clustered_matmul_mma": _CLUSTERED,
     "sparse_matvec": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
@@ -74,18 +77,21 @@ TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 ROUTES = (TENSOR_CORES, CUDA_CORES)
 
 
-def codebook_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) -> str:
-    """Which kernel of a codebook matmul takes a launch: ``"tensor_cores"``
-    (``csrc/codebook_mma.cuh``: wgmma on bf16 tiles of 64 weight columns,
-    fed by TMA) or ``"cuda_cores"`` (``tiled_kernel``, fp32 FMAs).  It
-    depends on the block shape and x's type, never on M, so a row's result
-    does not depend on how many rows come with it.
+def mma_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) -> str:
+    """Which kernel of a routed matmul (``sonic_matmul``, ``clustered_matmul``,
+    ``block_sparse_matmul``, ``block_sparse_matmul_int8``) takes a launch:
+    ``"tensor_cores"`` (``csrc/block_mma.cuh``: wgmma on bf16 tiles of 64
+    weight columns, fed by TMA) or ``"cuda_cores"`` (``tiled_kernel``, fp32
+    FMAs).  It depends on the block shape and x's type, never on M, so a
+    row's result does not depend on how many rows come with it.
 
-    The tensor cores take bf16 x whose tiles fit: for ``sonic_matmul`` (bk,
-    bn) blocks with bk a multiple of 16 and bn of 64; for
-    ``clustered_matmul`` (``dense``, bk = K, bn = N) N a multiple of 64 and
-    K of 8 (TMA reads x by rows whose stride must be a multiple of 16
-    bytes; the K edge of the last 64-row chunk arrives as zeros)."""
+    The tensor cores take bf16 x whose tiles fit: for the block-sparse
+    kernels (bk, bn) blocks with bk a multiple of 16 and bn of 64 (fp32 x,
+    ``serve_quant``'s 16×16 blocks and narrower ones stay on the CUDA
+    cores); for ``clustered_matmul`` (``dense``, bk = K, bn = N) N a
+    multiple of 64 and K of 8 (TMA reads x by rows whose stride must be a
+    multiple of 16 bytes; the K edge of the last 64-row chunk arrives as
+    zeros)."""
     if x_dtype != torch.bfloat16:
         return CUDA_CORES
     fits = bn % 64 == 0 and (bk % 8 == 0 if dense else bk % 16 == 0)
@@ -220,10 +226,10 @@ def _check_codebook(name: str, x: torch.Tensor, codebook: torch.Tensor,
 
 
 def _check_tma(name: str, *tensors: torch.Tensor) -> None:
-    """The tensor-core route reads x and the ids with TMA, whose global
-    addresses must be 16-byte aligned."""
+    """The tensor-core route reads x and the stored weights (ids or values)
+    with TMA, whose global addresses must be 16-byte aligned."""
     if name.endswith("_mma") and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: x and the ids must be 16-byte aligned")
+        raise ValueError(f"{name}: x and the weights must be 16-byte aligned")
 
 
 def _call(name: str, *args) -> None:
@@ -238,8 +244,10 @@ def _stream(x: torch.Tensor) -> int:
 
 def launch_int8(name: str, x: torch.Tensor, values: torch.Tensor,
                 scales: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """y (M, Nb·bn) fp32 from the int8 block-sparse entry point ``name``."""
+    """y (M, Nb·bn) fp32 from the int8 block-sparse entry point ``name``
+    (``block_sparse_matmul_int8_mma`` is the tensor-core route)."""
     m, k, nb, r, bk, bn = _check_blocks(name, x, values, (torch.int8,), indices, scales)
+    _check_tma(name, x, values)
     y = torch.empty((m, nb * bn), dtype=torch.float32, device=x.device)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), values.data_ptr(),
           scales.data_ptr(), indices.data_ptr(), y.data_ptr(), m, k, nb, r, bk, bn, _stream(x))
@@ -262,11 +270,13 @@ def launch_codebook(name: str, x: torch.Tensor, idx_values: torch.Tensor,
     return y
 
 
-def launch_fp(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """y (M, Nb·bn) fp32 from ``block_sparse_matmul`` (fp32 or bf16 values)."""
-    name = "block_sparse_matmul"
+def launch_fp(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+              name: str = "block_sparse_matmul") -> torch.Tensor:
+    """y (M, Nb·bn) fp32 from ``block_sparse_matmul`` or, on the tensor-core
+    route, ``block_sparse_matmul_mma`` (fp32 or bf16 values)."""
     m, k, nb, r, bk, bn = _check_blocks(name, x, values, (torch.float32, torch.bfloat16),
                                         indices)
+    _check_tma(name, x, values)
     y = torch.empty((m, nb * bn), dtype=torch.float32, device=x.device)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), values.data_ptr(),
           int(values.dtype == torch.bfloat16), indices.data_ptr(), y.data_ptr(),

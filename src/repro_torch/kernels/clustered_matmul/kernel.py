@@ -5,11 +5,11 @@ Replaces the TPU kernel ``clustered_matmul_pallas``
 ``src/repro_torch/csrc/clustered_matmul.cu``; its note gives the bound on an
 H100 (every weight is read, one byte per int8 id: bytes at a few rows,
 operations at a 256-row prefill) and the two routes, chosen by
-``build.codebook_route`` from the shape and x's type (never from M) and
+``build.mma_route`` from the shape and x's type (never from M) and
 counted in ``clustered_matmul_kernel.routes``:
 
 * ``"tensor_cores"`` (bf16 x, N a multiple of 64, K of 8):
-  ``csrc/codebook_mma.cuh``, 64 weight columns per thread block against up
+  ``csrc/block_mma.cuh``, 64 weight columns per thread block against up
   to 256 tokens, K in 64-row chunks TMA-loaded into a ring of stages, the
   codebook split into three bf16 parts and three ``wgmma`` per k16 step into
   a fresh fp32 tile per chunk, the chunks summed on the CUDA cores (see
@@ -44,12 +44,12 @@ def clustered_matmul_kernel(
     """y (M, N) fp32 = x (M, K) @ codebook[ids].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    of ``build.codebook_route``'s route (counted in
+    of ``build.mma_route``'s route (counted in
     ``clustered_matmul_kernel.launches`` and ``.routes[route]``) or
     raises."""
     if x.device.type == "cpu":
         return clustered_matmul_plain(x, ids, codebook)
-    route = build.codebook_route(*ids.shape, x.dtype, dense=True)
+    route = build.mma_route(*ids.shape, x.dtype, dense=True)
     if route == build.TENSOR_CORES:
         y = build.launch_clustered(x, ids, codebook, "clustered_matmul_mma")
     else:

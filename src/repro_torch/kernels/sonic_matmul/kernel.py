@@ -17,12 +17,12 @@ of each kept block staged in shared memory, the int8 rows streamed once
 with coalesced 4-byte loads, fp32 accumulation, and a fixed-order
 shared-memory reduction with no atomics.
 
-The matmul has two routes, chosen by ``build.codebook_route`` from the block
+The matmul has two routes, chosen by ``build.mma_route`` from the block
 shape and x's type (never from M) and counted per route in
 ``sonic_matmul_kernel.routes``:
 
 * ``"tensor_cores"`` (bf16 x, bk a multiple of 16, bn of 64):
-  ``csrc/codebook_mma.cuh``.  64 weight columns per thread block against a
+  ``csrc/block_mma.cuh``.  64 weight columns per thread block against a
   tile of up to 256 tokens (yᵀ = Wᵀ xᵀ, so 4 rows pad to 8), each kept
   block's ids and x slice TMA-loaded into a ring of shared-memory stages by
   a producer warp, each centroid split into three bf16 parts
@@ -148,11 +148,11 @@ def sonic_matmul_kernel(
     any M.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    of ``build.codebook_route``'s route (counted in
+    of ``build.mma_route``'s route (counted in
     ``sonic_matmul_kernel.launches`` and ``.routes[route]``) or raises."""
     if x.device.type == "cpu":
         return sonic_matmul_plain(x, idx_values, codebook, indices)
-    route = build.codebook_route(idx_values.shape[-2], idx_values.shape[-1], x.dtype)
+    route = build.mma_route(idx_values.shape[-2], idx_values.shape[-1], x.dtype)
     name = "sonic_matmul_mma" if route == build.TENSOR_CORES else "sonic_matmul"
     y = build.launch_codebook(name, x, idx_values, codebook, indices)
     sonic_matmul_kernel.launches += 1

@@ -1,7 +1,7 @@
 """The tensor-core route of the two codebook matmuls, checked on the CPU.
 
 ``clustered_matmul`` and ``sonic_matmul`` take bf16 x on the card through
-``csrc/codebook_mma.cuh``: each fp32 centroid is split into bf16 parts
+``csrc/block_mma.cuh``: each fp32 centroid is split into bf16 parts
 (``split_codebook_bf16``) and each part multiplies the bf16 x on the tensor
 cores, summed in fp32.  The CUDA kernel runs only on the card (tests marked
 ``cuda`` in ``tests/test_torch_kernels.py``); here the split itself, a plain
@@ -193,11 +193,11 @@ def test_all_zero_codebook_emulates_exact_zeros():
     (7, 3, torch.bfloat16, True, "cuda_cores"),
 ])
 def test_codebook_route_follows_block_and_dtype(bk, bn, dtype, dense, route):
-    assert build.codebook_route(bk, bn, dtype, dense=dense) == route
+    assert build.mma_route(bk, bn, dtype, dense=dense) == route
 
 
 def test_codebook_route_never_sees_m():
-    assert list(inspect.signature(build.codebook_route).parameters) == [
+    assert list(inspect.signature(build.mma_route).parameters) == [
         "bk", "bn", "x_dtype", "dense"]
 
 

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.convert import linear_params_from_jax
-from repro_torch.core.sonic_layers import make_block_sparse_int8
+from repro_torch.core.sonic_layers import BlockSparseWeightInt8, make_block_sparse_int8
 from repro_torch.kernels import build
 from repro_torch.kernels.block_sparse_matmul import kernel as bs_kernel
 from repro_torch.kernels.block_sparse_matmul import ops as bs_ops
@@ -622,7 +622,7 @@ def test_cuda_sparse_matvec_zero_deterministic_row_stable_and_unaligned(cuda):
 
 # ------------------------- the codebook matmuls' two routes (on the card)
 #
-# bf16 x takes the tensor-core kernel (csrc/codebook_mma.cuh) wherever its
+# bf16 x takes the tensor-core kernel (csrc/block_mma.cuh) wherever its
 # tiles fit, fp32 x and small blocks the CUDA-core tiled kernel; both are
 # held to the plain versions at 1e-4 (fp32 both: the tensor-core route
 # carries each centroid whole in three bf16 parts, so only the order of the
@@ -783,3 +783,150 @@ def test_cuda_tensor_core_route_deterministic_row_stable_and_zero(cuda, n):
         for m in (4, 300):
             assert (fn(x[:m].contiguous(), *zero) == 0).all()
         assert fn.routes == {"tensor_cores": 13, "cuda_cores": 0}
+
+
+# --------------------- the block-sparse matmuls' two routes (on the card)
+#
+# block_sparse_matmul_int8 and block_sparse_matmul take the same
+# tensor-core kernel (csrc/block_mma.cuh) for bf16 x where the blocks fit
+# (bk a multiple of 16, bn of 64), with the Int8Scale policy (one exact bf16
+# part, the kept block's scale applied per chunk) or the Plain policy (three
+# bf16 parts per fp32 value, one per bf16 value); fp32 x and small blocks
+# keep the CUDA-core tiled kernel.  Both held to the plain versions at 1e-4.
+
+
+def _int8_and_fp(k, n, block, sparsity, device, scale=None, seed=0):
+    """An int8 block-sparse weight of normal draws (times ``scale``, default
+    K**-0.5), and the fp32 values it dequantizes to."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device=device) * (k**-0.5 if scale is None else scale)
+    q = make_block_sparse_int8(w, sparsity, block)
+    return q, q.values.float() * q.scales[:, :, None, None]
+
+
+def _block_sparse_cases(q, fp, m):
+    """(kernel, plain, weight args) of both block-sparse matmuls: the int8
+    one for M ≥ 8 (fewer rows go to the matvec), fp32 and bf16 values."""
+    cases = [(bs_kernel.block_sparse_matmul_kernel, bs_kernel.block_sparse_matmul_plain,
+              (v, q.indices)) for v in (fp, fp.bfloat16())]
+    if m >= sm_ops.DECODE_M_THRESHOLD:
+        cases.append((bs_kernel.block_sparse_matmul_int8_kernel,
+                      bs_kernel.block_sparse_matmul_int8_plain, (q.values, q.scales, q.indices)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MAIN_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 8, 65, 257])
+def test_cuda_block_sparse_routes_match_plain_at_main_shapes(cuda, m, k, n):
+    """(128, 128) blocks at sparsity 0.5 as the served model converts them,
+    bf16 x on the tensor cores and fp32 x on the CUDA cores, against the
+    plain versions within 1e-4."""
+    _reset_routes(bs_kernel.block_sparse_matmul_kernel, bs_kernel.block_sparse_matmul_int8_kernel)
+    q, fp = _int8_and_fp(k, n, (128, 128), 0.5, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for fn, plain, w in _block_sparse_cases(q, fp, m):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+            got = fn(x, *w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, plain(x, *w), rtol=1e-4, atol=1e-4)
+    assert bs_kernel.block_sparse_matmul_kernel.routes == {"tensor_cores": 2, "cuda_cores": 2}
+    want = {"tensor_cores": 1, "cuda_cores": 1} if m >= 8 else dict.fromkeys(build.ROUTES, 0)
+    assert bs_kernel.block_sparse_matmul_int8_kernel.routes == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,route", [((16, 64), "tensor_cores"), ((32, 64), "tensor_cores"),
+                                         ((64, 128), "tensor_cores"), ((16, 16), "cuda_cores"),
+                                         ((128, 32), "cuda_cores"), ((8, 128), "cuda_cores")])
+@pytest.mark.parametrize("m", [1, 4, 8, 65, 257])
+def test_cuda_block_sparse_routes_by_block(cuda, m, block, route):
+    """Every kept-block size the tensor cores take (chunks of min(bk, 64) K
+    rows) and some they leave to the CUDA cores (``serve_quant``'s 16×16
+    among them), bf16 x, unit-scale weights, against the plain versions."""
+    k, n = 512, 256
+    q, fp = _int8_and_fp(k, n, block, 0.5, cuda, scale=1.0)
+    x = torch.randn((m, k), device=cuda, dtype=torch.bfloat16)
+    fns = (bs_kernel.block_sparse_matmul_kernel, bs_kernel.block_sparse_matmul_int8_kernel)
+    _reset_routes(*fns)
+    cases = _block_sparse_cases(q, fp, m)
+    for fn, plain, w in cases:
+        got = fn(x, *w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain(x, *w), rtol=1e-4, atol=1e-4)
+    assert sum(fn.routes[route] for fn in fns) == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,block", [(528, (16, 64)), (96, (32, 64)), (1040, (16, 128)),
+                                     (160, (32, 128))])
+@pytest.mark.parametrize("m", [1, 8, 65, 257])
+def test_cuda_block_sparse_tensor_cores_at_the_ragged_k_edge(cuda, m, k, block):
+    """K not a multiple of the 64-wide x tile: with bk < 64 and every
+    K-block kept, the last block's x tile reaches past K (TMA fills it with
+    zeros, and only its first bk columns are used)."""
+    q, fp = _int8_and_fp(k, 256, block, 0.0, cuda)
+    assert q.indices[0, -1].item() == k // block[0] - 1
+    x = torch.randn((m, k), device=cuda, dtype=torch.bfloat16)
+    fns = (bs_kernel.block_sparse_matmul_kernel, bs_kernel.block_sparse_matmul_int8_kernel)
+    _reset_routes(*fns)
+    cases = _block_sparse_cases(q, fp, m)
+    for fn, plain, w in cases:
+        got = fn(x, *w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain(x, *w), rtol=1e-4, atol=1e-4)
+    assert sum(fn.routes["tensor_cores"] for fn in fns) == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1024, 2048, 5632])
+@pytest.mark.parametrize("m", [8, 257])
+def test_cuda_block_sparse_tensor_cores_against_fp64_at_unit_scale(cuda, m, k):
+    """The exact product (fp64) as the witness, unit-scale weights, (128,
+    128) blocks at sparsity 0.5, 2048 columns, K up to tinyllama's 5632:
+    the fp32-values route lies within 1e-4 of it at no larger rms error
+    than the plain version's fp32 GEMM; the int8 route within 1e-4 of it."""
+    q, fp = _int8_and_fp(k, 2048, (128, 128), 0.5, cuda, scale=1.0, seed=4)
+    x = torch.randn((m, k), generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(torch.bfloat16)
+    fns = (bs_kernel.block_sparse_matmul_kernel, bs_kernel.block_sparse_matmul_int8_kernel)
+    _reset_routes(*fns)
+    dense = BlockSparseWeightInt8(q.values, q.scales, q.indices, k // 128).dense(torch.float64)
+    exact = x.double() @ dense
+    got = bs_kernel.block_sparse_matmul_kernel(x, fp, q.indices).double()
+    plain = bs_kernel.block_sparse_matmul_plain(x, fp, q.indices).double()
+    torch.testing.assert_close(got, exact, rtol=1e-4, atol=1e-4)
+    rms = [(y - exact).pow(2).mean().sqrt().item() for y in (got, plain)]
+    assert rms[0] <= rms[1], rms
+    got8 = bs_kernel.block_sparse_matmul_int8_kernel(x, q.values, q.scales, q.indices)
+    torch.testing.assert_close(got8.double(), exact, rtol=1e-4, atol=1e-4)
+    assert all(fn.routes == {"tensor_cores": 1, "cuda_cores": 0} for fn in fns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 8192])
+def test_cuda_block_sparse_tensor_cores_deterministic_row_stable_and_zero(cuda, n):
+    """On the tensor-core route two runs agree bit for bit, a row's result is
+    the same at M = 8, 9, 40, 65, 128, 200, 257 and 300 (and at 1 and 4 for
+    the fp values; token tiles of 8 to 256), and all-zero kept blocks or an
+    all-zero x give exact zeros."""
+    k = 1024
+    q, fp = _int8_and_fp(k, n, (128, 128), 0.5, cuda, seed=3)
+    x = torch.randn((300, k), generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda).to(torch.bfloat16)
+    runs = [(bs_kernel.block_sparse_matmul_int8_kernel, (q.values, q.scales, q.indices),
+             (torch.zeros_like(q.values), q.scales, q.indices), (8,))]
+    runs += [(bs_kernel.block_sparse_matmul_kernel, (v, q.indices),
+              (torch.zeros_like(v), q.indices), (1, 4, 8)) for v in (fp, fp.bfloat16())]
+    for fn, w, zero, small in runs:
+        _reset_routes(fn)
+        a = fn(x, *w)
+        assert torch.equal(a, fn(x, *w))
+        rows = (*small, 9, 40, 65, 128, 200, 257)
+        for m in rows:
+            assert torch.equal(a[:m], fn(x[:m].contiguous(), *w)), m
+        for m in (small[-1], 300):
+            assert (fn(x[:m].contiguous(), *zero) == 0).all()
+            assert (fn(torch.zeros_like(x[:m]), *w) == 0).all()
+        assert fn.routes == {"tensor_cores": 2 + len(rows) + 4, "cuda_cores": 0}
