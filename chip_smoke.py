@@ -13,24 +13,26 @@ Phases, in order; any failure exits non-zero before the last line:
      version at the main path's projection shapes (128×128 blocks,
      sparsity 0.5) and at small blocks, fp32 and bf16 x, fp32 outputs held
      to rtol = atol = 1e-4 (the sums run in another order over up to 5632
-     terms); an all-zero weight must give exact zeros.  block_sparse_matmul_int8
-     has two routes (``build.mma_route``: bf16 x on the tensor cores where
-     the blocks fit, the rest on the CUDA cores); both must have run.
+     terms), the matvec at M = 1 … 7; an all-zero weight or x must give exact
+     zeros.  Both int8 kernels have two routes (``build.mma_route``: bf16 x
+     on the tensor cores where the blocks fit, the rest on the CUDA cores);
+     each route of each must have run.
   4. main path: tinyllama-1.1b at full width, random weights from a seeded
      generator on the card, quantized there to int8 block-sparse
      (sparsity 0.5), greedy batch 4 × prompt 64 × 32 new tokens through
      ``repro_torch.launch.serve``.  The launch counters are zeroed just
-     before and read just after, with the int8 matmul's route counters
-     (every prefill launch, bf16 x, on the tensor cores); tokens must be in
+     before and read just after, with both int8 kernels' route counters
+     (every prefill and decode launch, bf16 x, on the tensor cores); tokens must be in
      range and repeat on a second run.  Then prefill ms, decode ms/token and
      tok/s (host clock, medians of 7), and the card's busy time while
      generating 9 tokens and in one prefill (torch.profiler) against the
      same calls' wall time.
   5. reference: the first two layers of the served model, fp32 compute,
-     prefill + 2 decode steps on the card (kernels; the int8 matmul on the
-     CUDA cores) against the CPU (plain versions), logits within 1e-4; then
-     the same two layers in the served bf16 compute, every prefill
-     projection on the tensor cores, greedy prefill + 2 decode steps on
+     prefill + 2 decode steps on the card (kernels; the int8 matmul and
+     matvec on the CUDA cores) against the CPU (plain versions), logits
+     within 1e-4; then the same two layers in the served bf16 compute, every
+     prefill and decode projection on the tensor cores, greedy prefill + 2
+     decode steps on
      each side: the same tokens, logits within 2**-5 (two bf16 ulps at
      |logit| < 4, the bound of tests/test_torch_engine.py's bf16 test).
   6. kernel times for one step's worth of launches on the served weights
@@ -38,9 +40,10 @@ Phases, in order; any failure exits non-zero before the last line:
      torch.matmul on the densified bf16 weight (a yardstick the port never
      calls) and the bound — each step captured in a CUDA graph and replayed
      between CUDA events, so host launch overhead is left out (``eager_ms``:
-     the same launches issued from Python, host clock); for the int8
-     matmul also the route the timed launches took, the achieved TFLOP/s,
-     the earlier time and µs per launch of each projection shape.
+     the same launches issued from Python, host clock); for both also the
+     route the timed launches took, the achieved TFLOP/s and GB/s, the
+     earlier time and µs per launch of each projection shape (for the
+     matvec also at one block per 64-column tile, split 1).
   7. the four kernels of the execution-mode layer (sonic_matvec,
      sonic_matmul, block_sparse_matmul, clustered_matmul) against their
      plain versions, as in phase 3: the five projection shapes at
@@ -54,6 +57,13 @@ Phases, in order; any failure exits non-zero before the last line:
      block_sparse_matmul_int8 against the exact (fp64) product, K = 5632,
      M = 257: each tensor-core route within 1e-4 of it, and for the three
      parts of fp32 weights no less accurate (rms) than the plain version.
+     sonic_matvec's two routes are held as sonic_matmul's.  Then a row's
+     bits across the decode threshold (``phase_row_bits``): at the five
+     projection shapes, bf16 x, the int8 pair (sonic_matvec_int8 /
+     block_sparse_matmul_int8) and the codebook pair (sonic_matvec /
+     sonic_matmul) give each row at M = 1, 4, 7 the bits of the same row at
+     M = 8, 12, 20 and 256, or the run fails; fp32 x and cuBLAS x @ W in
+     bf16 are reported beside them.
   8. layer path: the served model's seeded fp32 weights (all 155
      projections at full width) converted on the card by ``convert_linear``
      in modes "sonic", "block_sparse" and "clustered" (sparsity 0.5,
@@ -67,10 +77,12 @@ Phases, in order; any failure exits non-zero before the last line:
      ``use_kernel=False`` within 1e-4.
   9. kernel times of the four, as in phase 6, on the weights of phase 8:
      sonic_matvec at M = 4, sonic_matmul at M = 256, block_sparse_matmul
-     and clustered_matmul at both; for the three routed matmuls also the
-     route the timed launches took (their route counters), the achieved
-     TFLOP/s (2·M·weights), the earlier time and µs per launch of each
-     projection shape (the kernels line keeps the measured times only).
+     and clustered_matmul at both, each also issued from Python
+     (``eager_ms``); for the four routed kernels also the route the timed
+     launches took (their route counters), the achieved TFLOP/s
+     (2·M·weights) and GB/s, the earlier time and µs per launch of each
+     projection shape (sonic_matvec also at split 1; the kernels line keeps
+     the measured times only).
  10. the C3 kernel (sparse_matvec) against its plain version: the five
      projection shapes at knz = round(K / 4) and B 1, 4, 7; knz 0, 1, 7 ×
      N 1, 96, 130 × B 1, 4, 7, 256; fp32 and bf16 x and rows, fp32 outputs
@@ -147,6 +159,7 @@ from repro_torch.core.sparsity import (  # noqa: E402
     sparsity_of,
 )
 from repro_torch.kernels.sonic_matmul import kernel as sm_kernel  # noqa: E402
+from repro_torch.kernels.sonic_matmul import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
 from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -164,13 +177,14 @@ BF16_LOGIT_TOL = 2**-5  # two bf16 ulps at |logit| < 4 (tests/test_torch_engine.
 MAIN_ARGS = ["--arch", "tinyllama-1.1b", "--weight-quant", "int8",
              "--weight-quant-sparsity", "0.5", "--batch", "4", "--prompt-len", "64",
              "--new-tokens", "32"]
+DECODE_ROWS = (1, 2, 3, 4, 5, 6, 7)  # the matvecs' rows: M < ops.DECODE_M_THRESHOLD
 PROJECTIONS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
                ("ffn", "wi"), ("ffn", "wg"), ("ffn", "wo"))
 KERNELS = {
     "sonic_matvec_int8": dict(
         wrapper=sm_kernel.sonic_matvec_int8_kernel, plain=sm_kernel.sonic_matvec_int8_plain,
         source="src/repro_torch/csrc/sonic_matvec_int8.cu",
-        replaces="src/repro/kernels/sonic_matmul/kernel.py:93", rows=(1, 4, 7)),
+        replaces="src/repro/kernels/sonic_matmul/kernel.py:93", rows=DECODE_ROWS),
     "block_sparse_matmul_int8": dict(
         wrapper=bs_kernel.block_sparse_matmul_int8_kernel,
         plain=bs_kernel.block_sparse_matmul_int8_plain,
@@ -182,7 +196,7 @@ LAYER_KERNELS = {
     "sonic_matvec": dict(
         wrapper=sm_kernel.sonic_matvec_kernel, plain=sm_kernel.sonic_matvec_plain,
         source="src/repro_torch/csrc/sonic_matvec.cu", weight="codebook",
-        replaces="src/repro/kernels/sonic_matmul/kernel.py:37", rows=(1, 4, 7)),
+        replaces="src/repro/kernels/sonic_matmul/kernel.py:37", rows=DECODE_ROWS),
     "sonic_matmul": dict(
         wrapper=sm_kernel.sonic_matmul_kernel, plain=sm_kernel.sonic_matmul_plain,
         source="src/repro_torch/csrc/sonic_matmul.cu", weight="codebook",
@@ -198,14 +212,21 @@ LAYER_KERNELS = {
 }
 C3_KERNEL = dict(name="sparse_matvec", source="src/repro_torch/csrc/sparse_matvec.cu",
                  replaces="src/repro/kernels/sparse_matvec/kernel.py:40")
-# The layer kernels with two routes (block_sparse_matmul_int8, in KERNELS,
-# has them too), and the routed kernels' times on the CUDA cores before
-# their tensor-core route, by rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
-ROUTED = ("sonic_matmul", "block_sparse_matmul", "clustered_matmul")
+# The layer kernels with two routes (both kernels of KERNELS have them too),
+# and the routed kernels' times before their tensor-core route, by rows
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the matmuls' on the CUDA cores,
+# the matvecs' in their CUDA-core design
+ROUTED = ("sonic_matvec", "sonic_matmul", "block_sparse_matmul", "clustered_matmul")
 INT8_MATMUL = "block_sparse_matmul_int8"
+INT8_MATVEC = "sonic_matvec_int8"
 PREVIOUS_MS = {("sonic_matmul", 256): 23.137, ("clustered_matmul", 256): 44.351,
                ("clustered_matmul", 4): 17.647, (INT8_MATMUL, 256): 22.515,
-               ("block_sparse_matmul", 256): 22.806, ("block_sparse_matmul", 4): 8.893}
+               ("block_sparse_matmul", 256): 22.806, ("block_sparse_matmul", 4): 8.893,
+               (INT8_MATVEC, 4): 2.902, ("sonic_matvec", 4): 2.906}
+# The decode kernel's entry points, each timed at one block per tile too
+# (split 1) beside build.decode_split's choice
+DECODE_ENTRY = {INT8_MATVEC: "sonic_matvec_int8_mma", "sonic_matvec": "sonic_matvec_mma"}
+WINDOWS = (8, 12, 20, 256)  # verify windows B·(k+1), B = 4, k = 1, 2, 4; a prefill
 TOPK_FRAC = 0.25  # mode "topk"'s default kept fraction
 LAYER_MODES = ("sonic", "block_sparse", "clustered")
 LAYER_BLOCK = (128, 128)
@@ -238,8 +259,8 @@ def phase_kernels(dev: torch.device) -> dict[str, float]:
     cases = [(k, n, (128, 128), True) for k, n in MAIN_SHAPES]
     cases += [(512, 384, (16, 16), False), (512, 384, (32, 64), False)]
     errs = dict.fromkeys(KERNELS, 0.0)
-    int8_matmul = KERNELS[INT8_MATMUL]["wrapper"]
-    int8_matmul.routes = dict.fromkeys(build.ROUTES, 0)
+    for kn in KERNELS.values():
+        kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
     for k, n, block, main in cases:
         w = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
         q = make_block_sparse_int8(w, 0.5, block)
@@ -254,13 +275,15 @@ def phase_kernels(dev: torch.device) -> dict[str, float]:
                     if main:
                         errs[name] = max(errs[name], (got - want).abs().max().item())
     zero = make_block_sparse_int8(torch.zeros((2048, 2048), device=dev), 0.5, (128, 128))
+    w = make_block_sparse_int8(torch.randn((2048, 2048), device=dev), 0.5, (128, 128))
     for kn in KERNELS.values():
         x = torch.randn((kn["rows"][1], 2048), device=dev, dtype=torch.bfloat16)
-        if not (kn["wrapper"](x, zero.values, zero.scales, zero.indices) == 0).all():
-            raise AssertionError("an all-zero weight gave nonzero outputs")
-    routes = {INT8_MATMUL: dict(int8_matmul.routes)}
-    if not all(routes[INT8_MATMUL].values()):
-        raise AssertionError(f"a route of {INT8_MATMUL} never ran: {routes}")
+        if not ((kn["wrapper"](x, zero.values, zero.scales, zero.indices) == 0).all()
+                and (kn["wrapper"](torch.zeros_like(x), w.values, w.scales, w.indices) == 0).all()):
+            raise AssertionError("an all-zero weight or x gave nonzero outputs")
+    routes = {name: dict(kn["wrapper"].routes) for name, kn in KERNELS.items()}
+    if not all(v > 0 for r in routes.values() for v in r.values()):
+        raise AssertionError(f"a route of the int8 kernels never ran: {routes}")
     emit({"phase": "kernels_vs_plain", "cases": len(cases), "tolerance": TOL,
           "max_abs_err_main_shapes": errs, "routes": routes})
     return errs
@@ -279,21 +302,22 @@ def _seconds(fn, reps: int) -> float:
 
 def phase_main_path(card: str):
     args = serve.parse_args(MAIN_ARGS)
-    int8_matmul = KERNELS[INT8_MATMUL]["wrapper"]
     for kn in KERNELS.values():
         kn["wrapper"].launches = 0
-    int8_matmul.routes = dict.fromkeys(build.ROUTES, 0)
+        kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
     eng = serve.build_engine(args)
     tokens = serve.run_batch(eng, args)
     launches = {name: kn["wrapper"].launches for name, kn in KERNELS.items()}
-    routes = {INT8_MATMUL: dict(int8_matmul.routes)}
+    routes = {name: dict(kn["wrapper"].routes) for name, kn in KERNELS.items()}
     n_proj = eng.cfg.n_layers * len(PROJECTIONS) + 1
     want = {INT8_MATMUL: n_proj, "sonic_matvec_int8": n_proj * (args.new_tokens - 1)}
     for name, least in want.items():
         if launches[name] < least:
             raise AssertionError(f"{name}: {launches[name]} launches < {least}")
-    # the served prefill runs bf16 x: every launch on the tensor cores
-    if routes[INT8_MATMUL] != {build.TENSOR_CORES: launches[INT8_MATMUL], build.CUDA_CORES: 0}:
+    # the served model runs bf16 x: every prefill and decode launch on the
+    # tensor cores
+    if any(routes[name] != {build.TENSOR_CORES: launches[name], build.CUDA_CORES: 0}
+           for name in KERNELS):
         raise AssertionError(f"main path: routes {routes}, want all on the tensor cores")
     if tokens.shape != (args.batch, args.new_tokens) or not (
             (tokens >= 0) & (tokens < eng.cfg.vocab_size)).all():
@@ -375,19 +399,22 @@ def phase_reference(eng, depth: int = 2) -> None:
     cpu = _tree(lambda a: a.cpu(), card)
     tokens = torch.randint(0, eng.cfg.vocab_size, (2, 8),
                            generator=torch.Generator().manual_seed(3))
-    int8_matmul = KERNELS[INT8_MATMUL]["wrapper"]
+    wrappers = {name: kn["wrapper"] for name, kn in KERNELS.items()}
     prefill = depth * len(PROJECTIONS) + 1  # int8 matmul launches of one prefill
+    want_n = {INT8_MATMUL: prefill, INT8_MATVEC: 2 * prefill}  # and of the matvec, 2 steps
     out = {"phase": "reference", "layers": depth}
     for dtype, tol, route in ((torch.float32, TOL, build.CUDA_CORES),
                               (torch.bfloat16, BF16_LOGIT_TOL, build.TENSOR_CORES)):
         cfg = eng.cfg.replace(n_layers=depth, compute_dtype=str(dtype).removeprefix("torch."))
-        int8_matmul.routes = dict.fromkeys(build.ROUTES, 0)
+        for fn in wrappers.values():
+            fn.routes = dict.fromkeys(build.ROUTES, 0)
         greedy = dtype == torch.bfloat16
         (lc, tc), (lp, tp) = (_two_layer_run(params, cfg, tokens, dev, dtype, greedy)
                               for params, dev in ((card, eng.device), (cpu, torch.device("cpu"))))
-        routes = dict(int8_matmul.routes)
-        if routes != {**dict.fromkeys(build.ROUTES, 0), route: prefill}:
-            raise AssertionError(f"reference ({dtype}): routes {routes}, want {prefill} on {route}")
+        routes = {name: dict(fn.routes) for name, fn in wrappers.items()}
+        if any(routes[name] != {**dict.fromkeys(build.ROUTES, 0), route: n}
+               for name, n in want_n.items()):
+            raise AssertionError(f"reference ({dtype}): routes {routes}, want {want_n} on {route}")
         if greedy and not torch.equal(tc, tp):
             raise AssertionError(f"reference ({dtype}): greedy tokens {tc.tolist()} on the card, "
                                  f"{tp.tolist()} on the CPU")
@@ -448,8 +475,7 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
         def run(fn, subset=weights):
             return lambda: [fn(xs[k], v, s, ix) for k, v, s, ix in subset]
 
-        if name == INT8_MATMUL:
-            kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
+        kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
         entry = {
             "name": name, "route": "cuda", "source": kn["source"], "replaces": kn["replaces"],
             "launches": launches[name], "max_abs_err": errs[name], "rows": m,
@@ -460,13 +486,15 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
             else "operations",
             "library_ms": _step_ms(lambda: [xs[k] @ d for (k, *_), d in zip(weights, dense)]),
         }
-        timing = {}
-        if name == INT8_MATMUL:
-            shapes = {}
-            for w in weights:
-                shapes.setdefault(f"{w[0]}x{w[1].shape[0] * w[1].shape[3]}", []).append(w)
-            timing = _route_timing(name, m, kn["wrapper"], n_ops, entry["ms"], shapes,
-                                   lambda sub: _step_ms(run(kn["wrapper"], sub)))
+        shapes = {}
+        for w in weights:
+            shapes.setdefault(f"{w[0]}x{w[1].shape[0] * w[1].shape[3]}", []).append(w)
+        timing = _route_timing(name, m, kn["wrapper"], n_ops, n_bytes, entry["ms"], shapes,
+                               lambda sub: _step_ms(run(kn["wrapper"], sub)))
+        if name in DECODE_ENTRY:
+            timing.update(_split1_timing(
+                shapes, lambda sub: _step_ms(lambda: [build.launch_int8(
+                    DECODE_ENTRY[name], xs[k], v, s, ix, split=1) for k, v, s, ix in sub])))
         # the same launches issued one by one from Python (host clock, ended
         # by a synchronize): above kernel_ms, the wrappers are host-bound
         eager_ms = _seconds(run(kn["wrapper"]), 5) * 1e3
@@ -478,17 +506,26 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
     return out
 
 
-def _route_timing(name: str, m: int, wrapper, n_ops: float, ms: float, shapes: dict,
-                  time_subset) -> dict:
+def _route_timing(name: str, m: int, wrapper, n_ops: float, n_bytes: float, ms: float,
+                  shapes: dict, time_subset) -> dict:
     """What a routed kernel's timing line adds: the route its timed launches
     took (its route counters, zeroed before the timing), the achieved
-    TFLOP/s (2·M·weights), its time before the tensor-core route and µs per
-    launch of each projection shape, (K, N), timed on its own."""
+    TFLOP/s (2·M·weights) and GB/s (the bound's bytes), its time before the
+    tensor-core route and µs per launch of each projection shape, (K, N),
+    timed on its own."""
     routes = wrapper.routes
     return {"route": max(routes, key=routes.get), "tflops": n_ops / (ms * 1e-3) / 1e12,
-            "previous_ms": PREVIOUS_MS.get((name, m)),
+            "gb_s": n_bytes / (ms * 1e-3) / 1e9, "previous_ms": PREVIOUS_MS.get((name, m)),
             "us_per_launch_by_shape": {shape: time_subset(sub) * 1e3 / len(sub)
                                        for shape, sub in shapes.items()}}
+
+
+def _split1_timing(shapes: dict, time_subset) -> dict:
+    """The decode kernel with one block per 64-column tile (no split of its
+    chunks), µs per launch of each projection shape: what
+    ``build.decode_split`` is measured against."""
+    return {"us_per_launch_by_shape_split1": {shape: time_subset(sub) * 1e3 / len(sub)
+                                              for shape, sub in shapes.items()}}
 
 
 def _layer_weights(k: int, n: int, block, gen, dev) -> list[tuple[str, tuple]]:
@@ -597,6 +634,68 @@ def _fp64_witness(dev: torch.device) -> list[dict]:
             raise AssertionError(f"tensor-core route less accurate than the plain version: {row}")
         out.append(row)
     return out
+
+
+def _rows_across(fn, x: torch.Tensor) -> dict:
+    """fn's rows at M = 1, 4, 7 against the same rows inside each of
+    WINDOWS: how many of those row pairs differ, and the largest |Δ|."""
+    windows = {m: fn(x[:m]) for m in WINDOWS}
+    pairs = differ = 0
+    worst = 0.0
+    for m in (1, 4, 7):
+        row = fn(x[:m])
+        for y in windows.values():
+            d = (row.float() - y[:m].float()).abs()
+            pairs += m
+            differ += int((d > 0).any(-1).sum())
+            worst = max(worst, d.max().item())
+    return {"rows_differing": differ, "of": pairs, "max_abs_diff": worst}
+
+
+def phase_row_bits(dev: torch.device) -> None:
+    """A decode row (M = 1, 4, 7) against the same row inside windows of
+    M = 8, 12, 20 (speculative verify, B·(k+1) at B = 4, k = 1, 2, 4) and
+    256 (a prefill), at the five projection shapes, (128, 128) blocks,
+    sparsity 0.5.  Held bit for bit, bf16 x: the int8 pair (the fp32
+    kernel outputs as ``ops.sonic_matmul_int8`` dispatches them, and the
+    op's bf16 output) and the codebook pair (``ops.sonic_matmul``'s
+    dispatch).  Reported only: fp32 x (the CUDA-core kernels on both sides)
+    and cuBLAS ``x @ W`` in bf16 (the ``weight_quant="none"`` path)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for k, n in MAIN_SHAPES:
+        q = make_block_sparse_int8(torch.randn((k, n), generator=gen, device=dev) * k**-0.5,
+                                   0.5, (128, 128))
+        ids = torch.randint(0, 64, q.values.shape, generator=gen, device=dev, dtype=torch.int8)
+        cb = torch.randn((64,), generator=gen, device=dev) * k**-0.5
+        dense = BlockSparseWeightInt8(q.values, q.scales, q.indices, k // 128).dense(torch.bfloat16)
+        x = torch.randn((max(WINDOWS), k), generator=gen, device=dev)
+        w8, wc = (q.values, q.scales, q.indices), (ids, cb, q.indices)
+
+        def int8(xx):
+            fn = (sm_kernel.sonic_matvec_int8_kernel if xx.shape[0] < sm_ops.DECODE_M_THRESHOLD
+                  else bs_kernel.block_sparse_matmul_int8_kernel)
+            return fn(xx, *w8)
+
+        def codebook(xx):
+            fn = (sm_kernel.sonic_matvec_kernel if xx.shape[0] < sm_ops.DECODE_M_THRESHOLD
+                  else sm_kernel.sonic_matmul_kernel)
+            return fn(xx, *wc)
+
+        row = {}
+        for label, fn, xx, held in (
+                ("int8_bf16", int8, x.bfloat16(), True),
+                ("int8_op_bf16", lambda xx: sm_ops.sonic_matmul_int8(xx, *w8), x.bfloat16(), True),
+                ("codebook_bf16", codebook, x.bfloat16(), True),
+                ("int8_fp32_x", int8, x, False), ("codebook_fp32_x", codebook, x, False),
+                ("cublas_bf16", lambda xx: xx @ dense, x.bfloat16(), False)):
+            row[label] = _rows_across(fn, xx)
+            if held and row[label]["rows_differing"]:
+                raise AssertionError(f"{k}x{n} {label}: a decode row differs from its window "
+                                     f"row: {row[label]}")
+        out[f"{k}x{n}"] = row
+    emit({"phase": "row_bits", "decode_rows": [1, 4, 7], "windows": list(WINDOWS),
+          "held": ["int8_bf16", "int8_op_bf16", "codebook_bf16"], "by_shape": out})
 
 
 def _reset_routes() -> None:
@@ -742,12 +841,19 @@ def phase_layer_timing(converted: dict, launches: dict, errs: dict) -> list[dict
                 shapes = {}
                 for (k, args), d in zip(weights, dense[mode]):
                     shapes.setdefault(f"{k}x{d.shape[1]}", []).append((k, args))
-                timing = {**_route_timing(name, m, kn["wrapper"], n_ops, row["ms"], shapes,
-                                          lambda sub: _step_ms(run(kn["wrapper"], sub))),
+                timing = {**_route_timing(name, m, kn["wrapper"], n_ops, n_bytes, row["ms"],
+                                          shapes, lambda sub: _step_ms(run(kn["wrapper"], sub))),
                           "three_product_floor_ms": 3 * n_ops / BF16_TENSOR_FLOPS * 1e3}
+                if name in DECODE_ENTRY:
+                    timing.update(_split1_timing(shapes, lambda sub: _step_ms(lambda: [
+                        build.launch_codebook(DECODE_ENTRY[name], xs[k], *args, split=1)
+                        for k, args in sub])))
+            # the same launches issued one by one from Python (host clock)
+            eager_ms = _seconds(run(kn["wrapper"]), 5) * 1e3
             emit({"phase": "kernel_time", "name": name, "launches_per_step": len(weights),
                   "weight_bytes": sum(args[0].numel() * args[0].element_size()
-                                      for _, args in weights), **row, **timing})
+                                      for _, args in weights), **row, **timing,
+                  "eager_ms": eager_ms})
             if entry is None:
                 entry = {"name": name, "route": "cuda", "source": kn["source"],
                          "replaces": kn["replaces"], "launches": launches[name],
@@ -1014,6 +1120,7 @@ def main() -> None:
     phase_reference(eng)
     kernels = phase_timing(eng, launches, errs)
     layer_errs = phase_layer_kernels(dev)
+    phase_row_bits(dev)
     converted, layer_launches = phase_layer_path(eng, card)
     kernels += phase_layer_timing(converted, layer_launches, layer_errs)
     del converted

@@ -369,6 +369,25 @@ struct WgmmaSS<128> {
 
 // ------------------------------------------------------------ the kernel
 
+// Codebook<I>: splits the C centroids into their three bf16 parts
+// (split_codebook_bf16) and stages them packed, kCopies copies each, by the
+// block's `threads` threads; the caller's next barrier publishes them.
+template <typename W>
+__device__ __forceinline__ void stage_parts(uint2* cb, const float* codebook, int C, int t,
+                                            int threads) {
+  using P = Parts<W>;
+  if constexpr (P::kTable > 0) {
+    for (int e = t; e < C * P::kCopies; e += threads) {
+      const float c = __ldg(codebook + e / P::kCopies);
+      const __nv_bfloat16 hi = __float2bfloat16_rn(c);
+      const float r = c - __bfloat162float(hi);
+      const __nv_bfloat16 mid = __float2bfloat16_rn(r);
+      const __nv_bfloat16 lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+      cb[e] = make_uint2(bf16_bits(hi) | bf16_bits(mid) << 16, bf16_bits(lo));
+    }
+  }
+}
+
 // One k16 step of a warp's A fragment, from the stage's raw weights: the
 // warp's 16 weight columns are a [chunk][16] block of the raw tile (one TMA
 // box per warp), and the thread's eight values are columns lane/4 (+8) at
@@ -467,17 +486,7 @@ mma_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CU
   const int m0 = blockIdx.y * T;
   const int per_block = kDense ? 1 : p.bk / p.chunk;  // chunks per kept block
 
-  if constexpr (P::kTable > 0) {
-    // Split the codebook into its three bf16 parts (split_codebook_bf16).
-    for (int e = t; e < p.C * P::kCopies; e += G::kThreads) {
-      const float c = __ldg(p.codebook + e / P::kCopies);
-      const __nv_bfloat16 hi = __float2bfloat16_rn(c);
-      const float r = c - __bfloat162float(hi);
-      const __nv_bfloat16 mid = __float2bfloat16_rn(r);
-      const __nv_bfloat16 lo = __float2bfloat16_rn(r - __bfloat162float(mid));
-      cb[e] = make_uint2(bf16_bits(hi) | bf16_bits(mid) << 16, bf16_bits(lo));
-    }
-  }
+  stage_parts<W>(cb, p.codebook, p.C, t, G::kThreads);
   if (t == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);

@@ -2,7 +2,8 @@
 
 Every ``*.cu`` under ``src/repro_torch/csrc/`` is a kernel with a plain C
 entry point; the kernels' shared device code is ``block_sparse_kernels.cuh``
-(CUDA cores) and ``block_mma.cuh`` (tensor cores) beside them.
+(CUDA cores), ``block_mma.cuh`` (tensor cores) and ``decode_mma.cuh`` (the
+decode matvecs on the tensor cores) beside them.
 ``build()`` starts one ``nvcc -c`` per source, all at once, links the
 objects into one shared library under ``build/`` at the root of the
 checkout, and writes the compiler's output (``-Xptxas -v``: registers,
@@ -53,16 +54,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #               workspace, workspace floats, B, knz, K, N, stream); its
 #               workspace holds one (B, N) partial sum per chunk of
 #               ``sparse_matvec_chunk_rows()`` idx rows (none for one chunk)
-# The ``*_mma`` entry points (the tensor-core route) take bf16 x only.
+# The ``*_mma`` entry points (the tensor-core route) take bf16 x only; the
+# two decode ones (``sonic_matvec_int8_mma``, ``sonic_matvec_mma``) take
+# ``split`` (``decode_split``) before the stream.
 _INT8 = [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]
 _CODEBOOK = [_P, _I, _P, _P, _I, _P, _P] + [_I] * 6 + [_P]
 _FP = [_P, _I, _P, _I, _P, _P] + [_I] * 6 + [_P]
 _CLUSTERED = [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]
 SIGNATURES = {
     "sonic_matvec_int8": _INT8,
+    "sonic_matvec_int8_mma": _INT8[:-1] + [_I, _P],
     "block_sparse_matmul_int8": _INT8,
     "block_sparse_matmul_int8_mma": _INT8,
     "sonic_matvec": _CODEBOOK,
+    "sonic_matvec_mma": _CODEBOOK[:-1] + [_I, _P],
     "sonic_matmul": _CODEBOOK,
     "sonic_matmul_mma": _CODEBOOK,
     "block_sparse_matmul": _FP,
@@ -75,6 +80,15 @@ SIGNATURES = {
 MAX_CODEBOOK = {torch.int8: 128, torch.int32: 1024}  # centroids per id type
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 ROUTES = (TENSOR_CORES, CUDA_CORES)
+MMA_CHUNK = 64  # K rows of one fresh tensor-core tile: min(bk, 64)
+DECODE_MAX_SPLIT = 8  # blocks per 64-column tile: one cluster (csrc/decode_mma.cuh)
+DECODE_MAX_LOCAL = 64  # chunks per decode block
+DECODE_MAX_RECV = 160 * 1024  # bytes of received chunk tiles per decode block
+DECODE_SLOTS = 64 * 8  # fp32 fragment slots of one tile: 64 columns × 8 tokens
+# The decode entry points and the thread blocks per SM each one's registers
+# are budgeted for (kDecodeBlocksPerSm in csrc/decode_mma.cuh: the codebook's
+# three bf16 parts per weight hold three times the fragment registers)
+DECODE_BLOCKS_PER_SM = {"sonic_matvec_int8_mma": 4, "sonic_matvec_mma": 2}
 
 
 def mma_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) -> str:
@@ -96,6 +110,49 @@ def mma_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) ->
         return CUDA_CORES
     fits = bn % 64 == 0 and (bk % 8 == 0 if dense else bk % 16 == 0)
     return TENSOR_CORES if fits else CUDA_CORES
+
+
+def decode_recv(n_chunks: int, split: int) -> int:
+    """Bytes of chunk tiles (64 columns × 8 tokens, fp32) one decode block
+    receives to combine: 1 / split of every chunk's (none at split 1)."""
+    return n_chunks * DECODE_SLOTS * 4 // split if split > 1 else 0
+
+
+def decode_split(n_chunks: int, tiles: int, sms: int, blocks_per_sm: int) -> int:
+    """How many thread blocks (one cluster) share the chunks of one
+    64-column tile in the decode kernel (``csrc/decode_mma.cuh``): doubled
+    from 1, up to ``DECODE_MAX_SPLIT``, while the doubled grid (``tiles`` ×
+    split blocks) stays within three quarters of what the card holds at
+    once (``blocks_per_sm`` × ``sms``; the rest is slack for packing whole
+    clusters into the GPCs) and each block keeps at least two chunks;
+    then as far as needed so that no block takes more than
+    ``DECODE_MAX_LOCAL`` chunks or receives more than ``DECODE_MAX_RECV``
+    bytes (``decode_recv``); every block keeps at least one chunk.  It
+    depends on the weight's shape (``n_chunks`` = R·bk / min(bk, 64) per
+    tile, ``tiles`` = Nb·bn / 64) and the card, never on M; and the split
+    moves work between blocks without changing any output's bits (the
+    chunks are combined in one order)."""
+    split = 1
+    while (split < DECODE_MAX_SPLIT and 4 * tiles * 2 * split <= 3 * blocks_per_sm * sms
+           and n_chunks >= 4 * split):
+        split *= 2
+    while split < DECODE_MAX_SPLIT and (-(-n_chunks // split) > DECODE_MAX_LOCAL
+                                        or decode_recv(n_chunks, split) > DECODE_MAX_RECV):
+        split *= 2
+    return split
+
+
+def decode_chunks(values: torch.Tensor) -> tuple[int, int]:
+    """(chunks per 64-column tile, tiles) of a block-sparse weight (Nb, R,
+    bk, bn) in the decode kernel."""
+    nb, r, bk, bn = values.shape
+    return r * (bk // min(bk, MMA_CHUNK)), nb * (bn // 64)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (decode_split's card input)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _sources() -> list[Path]:
@@ -232,6 +289,31 @@ def _check_tma(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: x and the weights must be 16-byte aligned")
 
 
+def _check_decode(name: str, x: torch.Tensor, values: torch.Tensor,
+                  split: int | None) -> tuple[int, ...]:
+    """The decode kernel's extra arguments: () off its route, else (split,)
+    (``decode_split`` unless given).  It takes at most 7 rows of bf16 x,
+    bk a multiple of 16 and bn of 64 (``mma_route``), and a split of 1, 2,
+    4 or 8 blocks, each with at least one and at most ``DECODE_MAX_LOCAL``
+    chunks and at most ``DECODE_MAX_RECV`` bytes to combine."""
+    if name not in DECODE_BLOCKS_PER_SM:
+        return ()
+    n_chunks, tiles = decode_chunks(values)
+    if split is None:
+        split = decode_split(n_chunks, tiles, sm_count(x.device.index),
+                             DECODE_BLOCKS_PER_SM[name])
+    if (split not in (1, 2, 4, 8) or split > n_chunks
+            or -(-n_chunks // split) > DECODE_MAX_LOCAL
+            or decode_recv(n_chunks, split) > DECODE_MAX_RECV):
+        raise ValueError(f"{name}: {n_chunks} chunks per tile do not fit {split} blocks "
+                         f"of {DECODE_MAX_LOCAL} chunks and {DECODE_MAX_RECV} bytes")
+    if x.shape[0] > 7 or mma_route(values.shape[2], values.shape[3], x.dtype) != TENSOR_CORES:
+        raise ValueError(f"{name}: takes bf16 x of at most 7 rows and blocks the tensor "
+                         f"cores take, got x {tuple(x.shape)} {x.dtype}, blocks "
+                         f"{tuple(values.shape[2:])}")
+    return (split,)
+
+
 def _call(name: str, *args) -> None:
     err = getattr(load_library(), name)(*args)
     if err:
@@ -243,30 +325,38 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def launch_int8(name: str, x: torch.Tensor, values: torch.Tensor,
-                scales: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+                scales: torch.Tensor, indices: torch.Tensor, *,
+                split: int | None = None) -> torch.Tensor:
     """y (M, Nb·bn) fp32 from the int8 block-sparse entry point ``name``
-    (``block_sparse_matmul_int8_mma`` is the tensor-core route)."""
+    (``block_sparse_matmul_int8_mma`` and ``sonic_matvec_int8_mma`` are the
+    tensor-core routes; the latter takes ``split``, default
+    ``decode_split``)."""
     m, k, nb, r, bk, bn = _check_blocks(name, x, values, (torch.int8,), indices, scales)
     _check_tma(name, x, values)
+    extra = _check_decode(name, x, values, split)
     y = torch.empty((m, nb * bn), dtype=torch.float32, device=x.device)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), values.data_ptr(),
-          scales.data_ptr(), indices.data_ptr(), y.data_ptr(), m, k, nb, r, bk, bn, _stream(x))
+          scales.data_ptr(), indices.data_ptr(), y.data_ptr(), m, k, nb, r, bk, bn, *extra,
+          _stream(x))
     return y
 
 
 def launch_codebook(name: str, x: torch.Tensor, idx_values: torch.Tensor,
-                    codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+                    codebook: torch.Tensor, indices: torch.Tensor, *,
+                    split: int | None = None) -> torch.Tensor:
     """y (M, Nb·bn) fp32 from the codebook block-sparse entry point ``name``
-    (int8 cluster ids, C ≤ 128 centroids; ``sonic_matmul_mma`` is the
-    tensor-core route).  The ids must lie in [0, C), as the converters make
-    them; checking would cost a pass over the weights."""
+    (int8 cluster ids, C ≤ 128 centroids; ``sonic_matmul_mma`` and
+    ``sonic_matvec_mma`` are the tensor-core routes, the latter taking
+    ``split`` as in ``launch_int8``).  The ids must lie in [0, C), as the
+    converters make them; checking would cost a pass over the weights."""
     m, k, nb, r, bk, bn = _check_blocks(name, x, idx_values, (torch.int8,), indices)
     c = _check_codebook(name, x, codebook, idx_values)
     _check_tma(name, x, idx_values)
+    extra = _check_decode(name, x, idx_values, split)
     y = torch.empty((m, nb * bn), dtype=torch.float32, device=x.device)
     _call(name, x.data_ptr(), int(x.dtype == torch.bfloat16), idx_values.data_ptr(),
           codebook.data_ptr(), c, indices.data_ptr(), y.data_ptr(), m, k, nb, r, bk, bn,
-          _stream(x))
+          *extra, _stream(x))
     return y
 
 

@@ -12,13 +12,25 @@
   weights for M ≥ 8 rows (any M on the card).
 
 The matvecs are bound by bytes on an H100 (each weight byte feeds at most 7
-multiply-adds): one thread block per (N-block, 32-column slice), the x rows
-of each kept block staged in shared memory, the int8 rows streamed once
-with coalesced 4-byte loads, fp32 accumulation, and a fixed-order
-shared-memory reduction with no atomics.
+multiply-adds).  Each has two routes, chosen by ``build.mma_route`` from the
+block shape and x's type (never from M) and counted per route in its
+wrapper's ``.routes``:
 
-The matmul has two routes, chosen by ``build.mma_route`` from the block
-shape and x's type (never from M) and counted per route in
+* ``"tensor_cores"`` (bf16 x, bk a multiple of 16, bn of 64):
+  ``csrc/decode_mma.cuh`` (entry points ``sonic_matvec_int8_mma``,
+  ``sonic_matvec_mma``).  The arithmetic of the matmuls' tensor-core route
+  (one fresh ``wgmma`` tile per 64-row chunk, the tiles added in ascending
+  order), so a decode row has the bits of the same row in a prefill or
+  verify window of ``block_sparse_matmul_int8`` / ``sonic_matmul``; the
+  chunks of a 64-column tile are spread over a cluster of
+  ``build.decode_split`` thread blocks and combined in order through
+  distributed shared memory.
+* ``"cuda_cores"`` (fp32 x, smaller blocks): one thread block per (N-block,
+  32-column slice), the x rows of each kept block staged in shared memory,
+  the int8 rows streamed once with coalesced 4-byte loads, fp32
+  accumulation, and a fixed-order shared-memory reduction with no atomics.
+
+The matmul has the same two routes, counted in
 ``sonic_matmul_kernel.routes``:
 
 * ``"tensor_cores"`` (bf16 x, bk a multiple of 16, bn of 64):
@@ -72,17 +84,22 @@ def sonic_matvec_int8_kernel(
     """y (M, Nb·bn) fp32 = x (M, K) @ the int8 block-sparse weight, M ≤ 7.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``sonic_matvec_int8_kernel.launches``) or
+    of ``build.mma_route``'s route (counted in
+    ``sonic_matvec_int8_kernel.launches`` and ``.routes[route]``) or
     raises."""
     if x.device.type == "cpu":
         return sonic_matvec_int8_plain(x, values, scales, indices)
     _check_rows("sonic_matvec_int8", x)
-    y = build.launch_int8("sonic_matvec_int8", x, values, scales, indices)
+    route = build.mma_route(values.shape[-2], values.shape[-1], x.dtype)
+    name = "sonic_matvec_int8_mma" if route == build.TENSOR_CORES else "sonic_matvec_int8"
+    y = build.launch_int8(name, x, values, scales, indices)
     sonic_matvec_int8_kernel.launches += 1
+    sonic_matvec_int8_kernel.routes[route] += 1
     return y
 
 
 sonic_matvec_int8_kernel.launches = 0
+sonic_matvec_int8_kernel.routes = dict.fromkeys(build.ROUTES, 0)
 
 
 def sonic_matmul_plain(
@@ -129,16 +146,21 @@ def sonic_matvec_kernel(
     M ≤ 7.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in ``sonic_matvec_kernel.launches``) or raises."""
+    of ``build.mma_route``'s route (counted in ``sonic_matvec_kernel.launches``
+    and ``.routes[route]``) or raises."""
     if x.device.type == "cpu":
         return sonic_matvec_plain(x, idx_values, codebook, indices)
     _check_rows("sonic_matvec", x)
-    y = build.launch_codebook("sonic_matvec", x, idx_values, codebook, indices)
+    route = build.mma_route(idx_values.shape[-2], idx_values.shape[-1], x.dtype)
+    name = "sonic_matvec_mma" if route == build.TENSOR_CORES else "sonic_matvec"
+    y = build.launch_codebook(name, x, idx_values, codebook, indices)
     sonic_matvec_kernel.launches += 1
+    sonic_matvec_kernel.routes[route] += 1
     return y
 
 
 sonic_matvec_kernel.launches = 0
+sonic_matvec_kernel.routes = dict.fromkeys(build.ROUTES, 0)
 
 
 def sonic_matmul_kernel(

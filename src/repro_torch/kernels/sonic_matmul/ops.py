@@ -1,6 +1,10 @@
 """Public wrappers + weight converter for the SONIC matmuls: shape dispatch
 between the decode-shaped matvec kernels and the tiled matmul kernels, for
-the codebook format (``SonicWeight``) and the int8 format."""
+the codebook format (``SonicWeight``) and the int8 format.  For bf16 x with
+blocks the tensor cores take (``build.mma_route``), both sides of the
+dispatch do the same arithmetic, so a row's bits do not depend on whether
+the flattened M reaches ``DECODE_M_THRESHOLD``; fp32 x and other blocks run
+the CUDA-core kernels, whose sums run in another order on each side."""
 from __future__ import annotations
 
 import dataclasses

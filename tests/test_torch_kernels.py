@@ -930,3 +930,161 @@ def test_cuda_block_sparse_tensor_cores_deterministic_row_stable_and_zero(cuda, 
             assert (fn(x[:m].contiguous(), *zero) == 0).all()
             assert (fn(torch.zeros_like(x[:m]), *w) == 0).all()
         assert fn.routes == {"tensor_cores": 2 + len(rows) + 4, "cuda_cores": 0}
+
+
+# ------------------------------- a row's bits across the decode threshold
+#
+# The public ops send fewer than DECODE_M_THRESHOLD = 8 flattened rows to a
+# matvec and more to a matmul.  For bf16 x at blocks the tensor cores take,
+# both do the same arithmetic (the same wgmma per 64-row chunk, the chunk
+# tiles added in the same order), so a decode row equals the same row of a
+# prefill or speculative-verify window bit for bit.
+
+
+def _decode_pairs(k, n, device, seed=0):
+    """The int8 pair and the codebook pair on one (128, 128)-block weight at
+    sparsity 0.5: (name, public op, fp32 kernel dispatch) each."""
+    q, _ = _int8_and_fp(k, n, (128, 128), 0.5, device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    ids = torch.randint(0, 64, q.values.shape, generator=gen, device=device).to(torch.int8)
+    cb = torch.randn((64,), generator=gen, device=device) * k**-0.5
+    sw = sm_ops.SonicWeight(ids, cb, q.indices, k // 128)
+    w8 = (q.values, q.scales, q.indices)
+    wc = (ids, cb, q.indices)
+
+    def int8_kernel(x):
+        fn = (sm_kernel.sonic_matvec_int8_kernel if x.shape[0] < sm_ops.DECODE_M_THRESHOLD
+              else bs_kernel.block_sparse_matmul_int8_kernel)
+        return fn(x, *w8)
+
+    def codebook_kernel(x):
+        fn = (sm_kernel.sonic_matvec_kernel if x.shape[0] < sm_ops.DECODE_M_THRESHOLD
+              else sm_kernel.sonic_matmul_kernel)
+        return fn(x, *wc)
+
+    return [("int8", lambda x: sm_ops.sonic_matmul_int8(x, *w8), int8_kernel),
+            ("codebook", lambda x: sm_ops.sonic_matmul(x, sw), codebook_kernel)]
+
+
+DECODE_ROWS = (1, 4, 7)
+WINDOWS = (8, 12, 20, 256)  # verify windows B·(k+1), B = 4, k = 1, 2, 4; a prefill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MAIN_SHAPES)
+def test_cuda_decode_rows_equal_window_rows(cuda, k, n):
+    """bf16 x, tinyllama-1.1b's five projection shapes: the rows of
+    ``sonic_matmul_int8`` / ``sonic_matmul`` at M = 1, 4, 7 (the matvecs)
+    equal bit for bit the same rows at M = 8, 12, 20, 256 (the matmuls'
+    tensor-core route), in the ops' bf16 outputs and in the kernels' fp32
+    outputs.  A failure lists the rows that differ and the largest |Δ|."""
+    x = torch.randn((256, k), generator=torch.Generator(device=cuda).manual_seed(7),
+                    device=cuda).to(torch.bfloat16)
+    bad = []
+    for name, op, kernel in _decode_pairs(k, n, cuda):
+        for label, fn in (("op bf16", op), ("kernel fp32", kernel)):
+            windows = {m: fn(x[:m]) for m in WINDOWS}
+            for m in DECODE_ROWS:
+                row = fn(x[:m])
+                for big, y in windows.items():
+                    if not torch.equal(row, y[:m]):
+                        d = (row.float() - y[:m].float()).abs()
+                        bad.append(f"{name} {label} M={m} vs {big}: "
+                                   f"{int((d > 0).any(-1).sum())}/{m} rows differ, "
+                                   f"max |Δ| {d.max().item():.3e}")
+    assert not bad, "\n".join(bad)
+
+
+# ------------------------------------- the two matvecs' routes (on the card)
+#
+# sonic_matvec_int8 and sonic_matvec take the decode kernel of
+# csrc/decode_mma.cuh for bf16 x where the blocks fit (bk a multiple of 16,
+# bn of 64), and keep the CUDA-core matvec for fp32 x and other blocks.
+# Both routes held to the plain versions at 1e-4 (fp32 both; the sums run
+# in another order over up to 5632 terms).
+
+
+def _matvec_cases(k, n, block, device, seed=0):
+    """(wrapper, plain, weight args) of both matvecs on one weight's
+    kept-block structure: int8 values and scales, int8 ids in [0, 64) and a
+    codebook at the models' scale."""
+    q, _ = _int8_and_fp(k, n, block, 0.5, device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    ids = torch.randint(0, 64, q.values.shape, generator=gen, device=device).to(torch.int8)
+    cb = torch.randn((64,), generator=gen, device=device) * k**-0.5
+    return [(sm_kernel.sonic_matvec_int8_kernel, sm_kernel.sonic_matvec_int8_plain,
+             (q.values, q.scales, q.indices)),
+            (sm_kernel.sonic_matvec_kernel, sm_kernel.sonic_matvec_plain, (ids, cb, q.indices))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MAIN_SHAPES)
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7])
+def test_cuda_matvec_routes_match_plain_at_main_shapes(cuda, m, k, n):
+    """(128, 128) blocks at sparsity 0.5: bf16 x on the decode kernel, fp32 x
+    on the CUDA cores, each against the plain version within 1e-4."""
+    fns = (sm_kernel.sonic_matvec_int8_kernel, sm_kernel.sonic_matvec_kernel)
+    _reset_routes(*fns)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for fn, plain, w in _matvec_cases(k, n, (128, 128), cuda):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+            got = fn(x, *w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, plain(x, *w), rtol=1e-4, atol=1e-4)
+    assert all(fn.routes == {"tensor_cores": 1, "cuda_cores": 1} for fn in fns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,block", [(512, (1, 1)), (512, (2, 8)), (512, (16, 16)),
+                                     (512, (32, 64)), (512, (128, 128)), (512, (128, 4)),
+                                     (512, (16, 64)), (512, (64, 128)), (528, (16, 64)),
+                                     (96, (32, 64)), (1040, (16, 128)), (160, (32, 128))])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7])
+def test_cuda_matvec_routes_by_block(cuda, m, k, block):
+    """Small and ragged blocks (those of ``test_cuda_kernel_matches_plain``)
+    and K past the last 64-wide x tile with bk < 64 (every K-block kept, so
+    the last chunk's x tile reaches past K), bf16 x, unit-scale weights:
+    the route ``mma_route`` names, within 1e-4 of the plain version."""
+    q, _ = _int8_and_fp(k, 256, block, 0.0 if k != 512 else 0.5, cuda, scale=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ids = torch.randint(0, 64, q.values.shape, generator=gen, device=cuda).to(torch.int8)
+    cases = [(sm_kernel.sonic_matvec_int8_kernel, sm_kernel.sonic_matvec_int8_plain,
+              (q.values, q.scales, q.indices)),
+             (sm_kernel.sonic_matvec_kernel, sm_kernel.sonic_matvec_plain,
+              (ids, torch.randn((64,), generator=gen, device=cuda), q.indices))]
+    route = build.mma_route(*block, torch.bfloat16)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    _reset_routes(*(fn for fn, _, _ in cases))
+    for fn, plain, w in cases:
+        got = fn(x, *w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain(x, *w), rtol=1e-4, atol=1e-4)
+        assert fn.routes[route] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1024, 512), (5632, 2048), (2048, 32000)])
+def test_cuda_decode_kernel_deterministic_zero_split_and_row_stable(cuda, k, n):
+    """On the decode kernel two runs agree bit for bit, a row's result is the
+    same at M = 1 … 7 and at every split of the tile's chunks over 1, 2, 4 or
+    8 blocks, and an all-zero weight or x gives exact zeros."""
+    x = torch.randn((7, k), generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(torch.bfloat16)
+    cases = _matvec_cases(k, n, (128, 128), cuda, seed=5)
+    (_, _, (values, scales, indices)), (_, _, (ids, cb, _)) = cases
+    zeros = [(torch.zeros_like(values), scales, indices), (ids, torch.zeros_like(cb), indices)]
+    launch = [lambda xx, s: build.launch_int8("sonic_matvec_int8_mma", xx, values, scales,
+                                              indices, split=s),
+              lambda xx, s: build.launch_codebook("sonic_matvec_mma", xx, ids, cb, indices,
+                                                  split=s)]
+    for (fn, _, w), zero, direct in zip(cases, zeros, launch):
+        _reset_routes(fn)
+        a = fn(x, *w)
+        assert torch.equal(a, fn(x, *w))
+        for m in range(1, 7):
+            assert torch.equal(a[:m], fn(x[:m].contiguous(), *w)), m
+        for split in (1, 2, 4, 8):
+            assert torch.equal(a, direct(x, split)), split
+        assert (fn(x, *zero) == 0).all() and (fn(torch.zeros_like(x), *w) == 0).all()
+        assert fn.routes == {"tensor_cores": 10, "cuda_cores": 0}
