@@ -86,7 +86,15 @@ Phases, in order; any failure exits non-zero before the last line:
  10. the C3 kernel (sparse_matvec) against its plain version: the five
      projection shapes at knz = round(K / 4) and B 1, 4, 7; knz 0, 1, 7 ×
      N 1, 96, 130 × B 1, 4, 7, 256; fp32 and bf16 x and rows, fp32 outputs
-     held to 1e-4; exact zeros from an all-zero weight.
+     held to 1e-4; exact zeros from an all-zero weight.  The kernel is one
+     launch per projection (``csrc/sparse_matvec.cu``: the kept rows in
+     chunks of 32 over a cluster of ``build.sparse_matvec_plan`` blocks per
+     column tile, each warp's rows copied by cp.async into its own ring, the
+     warp sums combined in one order through distributed shared memory; no
+     second pass, no workspace), with two routes
+     (``build.sparse_matvec_route``: ``async_copy`` where the rows start
+     16-byte aligned, ``cuda_cores`` elsewhere, N = 1 and 130 here); both
+     must have run.
  11. C3 paths: the STL10 CNN at its published width (96×96×3 input, fc0
      147,456 → 512) on a seeded batch of 4: fc0's input through
      ``topk_sparse_matmul`` (k = its batch-union nonzero count) and one row
@@ -98,7 +106,11 @@ Phases, in order; any failure exits non-zero before the last line:
      each projection at fp32 against ``sparse_ffn_matmul`` (mode "topk"'s
      plain path) within 1e-4.  Then the kernel's times as in phase 6: 155
      launches in one CUDA graph (bf16, B = 4), the plain version, and the
-     library call ``x_nz @ Wt.index_select(0, idx)`` (both in the graph).
+     library call ``x_nz @ Wt.index_select(0, idx)`` (both in the graph);
+     µs per launch of the kernel and the library call at each of the five
+     shapes, the route the timed launches took, and the device kernels of
+     one eager pass by name (torch.profiler: launches per projection and
+     µs per launch).
  12. the SONIC pipeline of the repo's two examples, through the port on the
      card: C1 ``build_masks`` (sparsity 0.5, (8, 8) blocks) over the full
      tinyllama-1.1b params, C2 ``cluster_params`` (64 clusters), greedy
@@ -211,7 +223,10 @@ LAYER_KERNELS = {
         replaces="src/repro/kernels/clustered_matmul/kernel.py:39", rows=(4, 8, 256, 257)),
 }
 C3_KERNEL = dict(name="sparse_matvec", source="src/repro_torch/csrc/sparse_matvec.cu",
-                 replaces="src/repro/kernels/sparse_matvec/kernel.py:40")
+                 replaces="src/repro/kernels/sparse_matvec/kernel.py:40",
+                 design="one launch per projection: chunks of 32 kept rows over a "
+                        "cluster of split blocks per column tile, cp.async rings per warp, "
+                        "warp sums combined in order through distributed shared memory")
 # The layer kernels with two routes (both kernels of KERNELS have them too),
 # and the routed kernels' times before their tensor-core route, by rows
 # (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the matmuls' on the CUDA cores,
@@ -881,6 +896,7 @@ def phase_c3_kernel(dev: torch.device) -> float:
     cases += [(b, 50, n, knz, False) for knz in (0, 1, 7) for n in (1, 96, 130)
               for b in (1, 4, 7, 256)]
     err, n_checks = 0.0, 0
+    smv_kernel.sparse_matvec_kernel.routes = dict.fromkeys(build.SMV_ROUTES, 0)
     for b, k, n, knz, main in cases:
         for xdtype, wdtype in types:
             x, idx, wt = _c3_case(b, k, n, knz, xdtype, wdtype, gen, dev)
@@ -896,8 +912,11 @@ def phase_c3_kernel(dev: torch.device) -> float:
     x, idx, wt = _c3_case(4, 2048, 2048, 512, torch.bfloat16, torch.bfloat16, gen, dev)
     if not (smv_kernel.sparse_matvec_kernel(x, idx, torch.zeros_like(wt)) == 0).all():
         raise AssertionError("an all-zero weight gave nonzero outputs")
+    routes = dict(smv_kernel.sparse_matvec_kernel.routes)
+    if not all(v > 0 for v in routes.values()):
+        raise AssertionError(f"a route of sparse_matvec never ran: {routes}")
     emit({"phase": "c3_kernel_vs_plain", "cases": len(cases), "checks": n_checks,
-          "tolerance": TOL, "max_abs_err_main_shapes": err})
+          "tolerance": TOL, "max_abs_err_main_shapes": err, "routes": routes})
     return err
 
 
@@ -1000,19 +1019,40 @@ def phase_c3_timing(operands: list, launches: int, err: float) -> dict:
         ops = 2.0 * b * knz * n
         n_bytes, n_ops = n_bytes + byt, n_ops + ops
         bound_s += max(byt / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+    fn = smv_kernel.sparse_matvec_kernel
+
+    def kernel(sub):
+        return lambda: [fn(*o) for o in sub]
+
+    def library(sub):
+        return lambda: [x @ w.index_select(0, idx) for x, idx, w in sub]
+
+    fn.routes = dict.fromkeys(build.SMV_ROUTES, 0)
     entry = {
         **C3_KERNEL, "route": "cuda", "launches": launches, "max_abs_err": err,
         "rows": operands[0][0].shape[0],
-        "ms": _step_ms(lambda: [smv_kernel.sparse_matvec_kernel(*o) for o in operands]),
+        "ms": _step_ms(kernel(operands)),
         "plain_ms": _step_ms(lambda: [smv_kernel.sparse_matvec_plain(*o) for o in operands]),
         "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / BF16_TENSOR_FLOPS
         else "operations",
-        "library_ms": _step_ms(lambda: [x @ w.index_select(0, idx) for x, idx, w in operands]),
+        "library_ms": _step_ms(library(operands)),
     }
+    entry["routes"] = dict(fn.routes)  # of the timed launches
+    shapes = {}
+    for o in operands:
+        shapes.setdefault(f"{o[2].shape[0]}x{o[2].shape[1]}", []).append(o)
+    by_shape = {shape: {"kernel": _step_ms(kernel(sub)) * 1e3 / len(sub),
+                        "library": _step_ms(library(sub)) * 1e3 / len(sub),
+                        "plan": build.sparse_matvec_plan(x.shape[1], w.shape[1], build.sm_count(0))}
+                for shape, sub in shapes.items() for x, _, w in sub[:1]}
+    device = {e.key[:80]: {"launches_per_projection": e.count / len(operands),
+                           "us_per_launch": e.self_device_time_total / e.count}
+              for e in _device_kernels(kernel(operands))}
     emit({"phase": "kernel_time", "launches_per_step": len(operands),
           "bytes": n_bytes, "kernel_ms": entry["ms"],
-          **{k: v for k, v in entry.items() if k != "ms"}})
+          **{k: v for k, v in entry.items() if k != "ms"},
+          "us_per_launch_by_shape": by_shape, "device_kernels_one_pass": device})
     return entry
 
 

@@ -3,7 +3,8 @@
 Every ``*.cu`` under ``src/repro_torch/csrc/`` is a kernel with a plain C
 entry point; the kernels' shared device code is ``block_sparse_kernels.cuh``
 (CUDA cores), ``block_mma.cuh`` (tensor cores) and ``decode_mma.cuh`` (the
-decode matvecs on the tensor cores) beside them.
+decode matvecs on the tensor cores, and the launch and cluster-barrier
+helpers ``sparse_matvec.cu`` takes) beside them.
 ``build()`` starts one ``nvcc -c`` per source, all at once, links the
 objects into one shared library under ``build/`` at the root of the
 checkout, and writes the compiler's output (``-Xptxas -v``: registers,
@@ -50,10 +51,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #               M, K, Nb, R, bk, bn, stream)
 #   clustered: (x, x_is_bf16, ids, ids_is_int32, fp32 codebook, C, y,
 #               M, K, N, stream)
-#   sparse_matvec: (x_nz, x_is_bf16, int32 idx, wt, wt_is_bf16, y, fp32
-#               workspace, workspace floats, B, knz, K, N, stream); its
-#               workspace holds one (B, N) partial sum per chunk of
-#               ``sparse_matvec_chunk_rows()`` idx rows (none for one chunk)
+#   sparse_matvec: (x_nz, x_is_bf16, int32 idx, wt, wt_is_bf16, y, B, knz,
+#               K, N, tile, split, async, stream): ``sparse_matvec_plan``'s
+#               tile and split, ``sparse_matvec_route``'s copy (async 1 or 0)
 # The ``*_mma`` entry points (the tensor-core route) take bf16 x only; the
 # two decode ones (``sonic_matvec_int8_mma``, ``sonic_matvec_mma``) take
 # ``split`` (``decode_split``) before the stream.
@@ -74,8 +74,7 @@ SIGNATURES = {
     "block_sparse_matmul_mma": _FP,
     "clustered_matmul": _CLUSTERED,
     "clustered_matmul_mma": _CLUSTERED,
-    "sparse_matvec": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
-    "sparse_matvec_chunk_rows": [],
+    "sparse_matvec": [_P, _I, _P, _P, _I, _P] + [_I] * 7 + [_P],
 }
 MAX_CODEBOOK = {torch.int8: 128, torch.int32: 1024}  # centroids per id type
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
@@ -89,6 +88,12 @@ DECODE_SLOTS = 64 * 8  # fp32 fragment slots of one tile: 64 columns × 8 tokens
 # are budgeted for (kDecodeBlocksPerSm in csrc/decode_mma.cuh: the codebook's
 # three bf16 parts per weight hold three times the fragment registers)
 DECODE_BLOCKS_PER_SM = {"sonic_matvec_int8_mma": 4, "sonic_matvec_mma": 2}
+# sparse_matvec (csrc/sparse_matvec.cu): kept rows per chunk, warps per
+# block, column tiles from the widest, blocks per cluster; its two routes
+# copy rows into shared memory with cp.async or load them into registers
+SMV_CHUNK, SMV_WARPS, SMV_TILES, SMV_MAX_SPLIT = 32, 4, (256, 128, 64, 32), 8
+ASYNC_COPY = "async_copy"
+SMV_ROUTES = (ASYNC_COPY, CUDA_CORES)
 
 
 def mma_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) -> str:
@@ -147,6 +152,36 @@ def decode_chunks(values: torch.Tensor) -> tuple[int, int]:
     bk, bn) in the decode kernel."""
     nb, r, bk, bn = values.shape
     return r * (bk // min(bk, MMA_CHUNK)), nb * (bn // 64)
+
+
+def sparse_matvec_plan(knz: int, n: int, sms: int) -> tuple[int, int]:
+    """(tile, split) of ``sparse_matvec``: columns per block and blocks per
+    column tile (one cluster) sharing the tile's chunks of ``SMV_CHUNK``
+    kept rows.  For each tile from the widest, the split is doubled from 1,
+    up to ``SMV_MAX_SPLIT``, while the doubled grid stays within two blocks
+    per SM and every block keeps two chunks; the first tile whose grid
+    reaches half the SMs is taken (the narrowest otherwise).  It reads knz,
+    N and the card's SMs, never B: each output's chain of sums depends on
+    knz and the split alone (csrc/sparse_matvec.cu)."""
+    n_chunks = -(-knz // SMV_CHUNK)
+    for tile in SMV_TILES:
+        tiles = -(-n // tile)
+        split = 1
+        while split < SMV_MAX_SPLIT and tiles * 2 * split <= 2 * sms and n_chunks >= 4 * split:
+            split *= 2
+        if 2 * tiles * split >= sms:
+            break
+    return tile, split
+
+
+def sparse_matvec_route(wt: torch.Tensor) -> str:
+    """``"async_copy"`` where each kept row's segment starts 16-byte aligned
+    (N · element size a multiple of 16, wt 16-byte aligned), so that
+    ``sparse_matvec`` copies it with cp.async, 16 bytes a lane; else
+    ``"cuda_cores"`` (loads into registers, the same sums).  From the shape
+    and the alignment, never from B."""
+    aligned = wt.shape[1] * wt.element_size() % 16 == 0 and wt.data_ptr() % 16 == 0
+    return ASYNC_COPY if aligned else CUDA_CORES
 
 
 @functools.cache
@@ -396,11 +431,14 @@ def launch_clustered(x: torch.Tensor, ids: torch.Tensor, codebook: torch.Tensor,
     return y
 
 
-def launch_sparse_matvec(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+def launch_sparse_matvec(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor, *,
+                         plan: tuple[int, int] | None = None) -> torch.Tensor:
     """y (B, N) fp32 from ``sparse_matvec``: x_nz (B, knz) times the rows of
-    wt (K, N) (fp32 or bf16) that idx (knz,) int32 names.  The indices must
-    lie in [0, K), as ``topk_sparse_matmul`` makes them; the kernel clamps
-    them rather than read outside wt, and checking would cost a sync."""
+    wt (K, N) (fp32 or bf16) that idx (knz,) int32 names, in one launch on
+    ``sparse_matvec_route``'s route, with ``sparse_matvec_plan``'s (tile,
+    split) unless ``plan`` gives them.  The indices must lie in [0, K), as
+    ``topk_sparse_matmul`` makes them; the kernel clamps them rather than
+    read outside wt, and checking would cost a sync."""
     name = "sparse_matvec"
     _check_x(name, x_nz)
     _check(name, x_nz, idx, (torch.int32,), "idx")
@@ -410,14 +448,11 @@ def launch_sparse_matvec(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor
         raise ValueError(f"{name}: want idx ({knz},) and wt (K ≥ 1, N ≥ 1), got "
                          f"{tuple(idx.shape)} and {tuple(wt.shape)}")
     k, n = wt.shape
-    lib = load_library()
-    chunks = -(-knz // lib.sparse_matvec_chunk_rows())
-    ws_floats = chunks * b * n if chunks > 1 else 0
-    if max(b * knz, b * n, wt.numel(), ws_floats) >= 2**31:
+    if max(b * knz, b * n, wt.numel()) >= 2**31:
         raise ValueError(f"{name}: operands past 2**31 elements")
+    tile, split = plan or sparse_matvec_plan(knz, n, sm_count(x_nz.device.index))
     y = torch.empty((b, n), dtype=torch.float32, device=x_nz.device)
-    ws = torch.empty((ws_floats,), dtype=torch.float32, device=x_nz.device) if ws_floats else None
     _call(name, x_nz.data_ptr(), int(x_nz.dtype == torch.bfloat16), idx.data_ptr(),
-          wt.data_ptr(), int(wt.dtype == torch.bfloat16), y.data_ptr(),
-          None if ws is None else ws.data_ptr(), ws_floats, b, knz, k, n, _stream(x_nz))
+          wt.data_ptr(), int(wt.dtype == torch.bfloat16), y.data_ptr(), b, knz, k, n, tile,
+          split, int(sparse_matvec_route(wt) == ASYNC_COPY), _stream(x_nz))
     return y

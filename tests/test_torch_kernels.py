@@ -560,12 +560,18 @@ def test_cuda_new_kernels_zero_deterministic_and_row_stable(cuda):
 # ------------------------------------------- the compressed sparse matvec
 
 
-def _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, device, seed=0):
+def _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, device, seed=0, scale=1.0):
     gen = torch.Generator(device=device).manual_seed(seed)
-    wt = torch.randn((k, n), generator=gen, device=device).to(wdtype)
+    wt = (torch.randn((k, n), generator=gen, device=device) * scale).to(wdtype)
     idx = torch.randperm(k, generator=gen, device=device)[:knz].sort().values.int()
     x = torch.randn((b, knz), generator=gen, device=device).to(xdtype)
     return x, idx, wt
+
+
+# tinyllama-1.1b's five C3 projection shapes at knz = K / 4, B = 1, 4, 7, and
+# STL10's fc0 (147,456 -> 512) at B = 4
+SPARSE_MAIN = [(b, k, n, k // 4) for k, n in ((2048, 2048), (2048, 256), (2048, 5632),
+                                               (5632, 2048), (2048, 32000)) for b in (1, 4, 7)]
 
 
 @pytest.mark.cuda
@@ -573,24 +579,55 @@ def _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, device, seed=0):
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,k,n,knz", [
     (1, 256, 512, 64), (4, 2048, 2048, 512), (4, 5632, 256, 1408), (7, 2048, 130, 65),
-    (256, 96, 96, 7), (3, 50, 1, 17), (8, 128, 200, 128), (5, 64, 96, 1), (2, 64, 40, 0)])
+    (256, 96, 96, 7), (3, 50, 1, 17), (8, 128, 200, 128), (5, 64, 96, 1), (2, 64, 40, 0),
+    *SPARSE_MAIN, (4, 147456, 512, 36864)])
 def test_cuda_sparse_matvec_matches_plain(cuda, b, k, n, knz, xdtype, wdtype):
+    """Each launch counted on its route: cp.async where the rows'
+    segments start 16-byte aligned, plain loads elsewhere (N = 1, 130).
+    STL10's fc0 has its layer's scale (K**-0.5), so that its 36,864-term
+    sums stay where 1e-4 measures the order of the sums, not its length."""
     from repro_torch.kernels.sparse_matvec import kernel as smv_kernel
 
-    x, idx, wt = _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, cuda)
-    got = smv_kernel.sparse_matvec_kernel(x, idx, wt)
+    x, idx, wt = _cuda_sparse_case(b, k, n, knz, xdtype, wdtype, cuda,
+                                   scale=k**-0.5 if k == 147456 else 1.0)
+    fn = smv_kernel.sparse_matvec_kernel
+    fn.routes = dict.fromkeys(build.SMV_ROUTES, 0)
+    got = fn(x, idx, wt)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (b, n)
-    # fp32 both; the sums run in another order over up to 1408 terms
+    route = build.ASYNC_COPY if n * wt.element_size() % 16 == 0 else build.CUDA_CORES
+    assert fn.routes == {**dict.fromkeys(build.SMV_ROUTES, 0), route: 1}
+    # fp32 both; the sums run in another order over up to 36,864 terms
     torch.testing.assert_close(got, smv_kernel.sparse_matvec_plain(x, idx, wt),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_sparse_matmul_back_to_back(cuda):
+    """20 whole C3 ops in a row on changing x, no synchronize between them:
+    the kernel reads idx and x_nz, which the top-k, sort and gather ahead
+    of it in the stream write, only after its grid dependency wait."""
+    from repro_torch.core.activation_sparsity import sparse_ffn_matmul
+    from repro_torch.kernels.sparse_matvec import kernel as smv_kernel
+    from repro_torch.kernels.sparse_matvec import ops as smv_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    w = torch.randn((2048, 2048), generator=gen, device=cuda) * 2048**-0.5
+    xs = [torch.randn((4, 1, 2048), generator=gen, device=cuda) for _ in range(20)]
+    torch.cuda.synchronize()
+    smv_kernel.sparse_matvec_kernel.launches = 0
+    ys = [smv_ops.topk_sparse_matmul(x, w, 512) for x in xs]
+    torch.cuda.synchronize()
+    assert smv_kernel.sparse_matvec_kernel.launches == 20
+    for x, y in zip(xs, ys):
+        torch.testing.assert_close(y, sparse_ffn_matmul(x, w, 512), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
 def test_cuda_sparse_matvec_zero_deterministic_row_stable_and_unaligned(cuda):
     """Exact zeros from a zero weight, zero x or no kept rows; two runs agree
     bit for bit; a row's result does not depend on B (chunks fixed by knz);
-    a weight that is not 16-byte aligned takes the one-column path."""
+    a weight that is not 16-byte aligned takes the CUDA-core route."""
     from repro_torch.kernels.sparse_matvec import kernel as smv_kernel
     from repro_torch.kernels.sparse_matvec import ops as smv_ops
 
