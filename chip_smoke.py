@@ -28,8 +28,9 @@ Phases, in order; any failure exits non-zero before the last line:
      generating 9 tokens and in one prefill (torch.profiler) against the
      same calls' wall time.
   5. reference: the first two layers of the served model, fp32 compute,
-     prefill + 2 decode steps on the card (kernels; the int8 matmul and
-     matvec on the CUDA cores) against the CPU (plain versions), logits
+     prefill + 2 decode steps on the card (kernels; fp32 x takes the int8
+     tiled matmul on the CUDA cores at every M) against the CPU (plain
+     versions), logits
      within 1e-4; then the same two layers in the served bf16 compute, every
      prefill and decode projection on the tensor cores, greedy prefill + 2
      decode steps on
@@ -43,7 +44,10 @@ Phases, in order; any failure exits non-zero before the last line:
      the same launches issued from Python, host clock); for both also the
      route the timed launches took, the achieved TFLOP/s and GB/s, the
      earlier time and µs per launch of each projection shape (for the
-     matvec also at one block per 64-column tile, split 1).
+     matvec also at one block per 64-column tile, split 1).  Then what
+     fp32 x at M = 4 costs on the tiled matmul, which takes every fp32
+     launch since a row's bits must not depend on M, against the CUDA-core
+     matvec it replaced there (``fp32_x_decode_cost``).
   7. the four kernels of the execution-mode layer (sonic_matvec,
      sonic_matmul, block_sparse_matmul, clustered_matmul) against their
      plain versions, as in phase 3: the five projection shapes at
@@ -59,11 +63,23 @@ Phases, in order; any failure exits non-zero before the last line:
      parts of fp32 weights no less accurate (rms) than the plain version.
      sonic_matvec's two routes are held as sonic_matmul's.  Then a row's
      bits across the decode threshold (``phase_row_bits``): at the five
-     projection shapes, bf16 x, the int8 pair (sonic_matvec_int8 /
+     projection shapes, the int8 pair (sonic_matvec_int8 /
      block_sparse_matmul_int8) and the codebook pair (sonic_matvec /
-     sonic_matmul) give each row at M = 1, 4, 7 the bits of the same row at
-     M = 8, 12, 20 and 256, or the run fails; fp32 x and cuBLAS x @ W in
-     bf16 are reported beside them.
+     sonic_matmul), bf16 x and fp32 x, as the ops dispatch them, give each
+     row at M = 1, 4, 7 the bits of the same row at M = 8, 12, 20 and 256,
+     and the dense bf16 path (``layers.dense_apply``, rows padded to 64)
+     at M = 8, 12, 20, or the run fails; the dense path's 256-row prefill
+     and cuBLAS x @ W unpadded are reported beside them.  Then the
+     serving modes at full width (``phase_serving_modes``: batch 4, prompt
+     64, the served int8 weights and the dense bf16 weights of the same
+     seed): a verify window at k = 4 (20 rows, ``decode_chunk``) ≡ 5
+     sequential decode steps bit for bit, under bf16 and int8 KV, for both
+     weight formats; chunk-resume in chunks of 16 ≡ whole-prompt prefill
+     (held for int8 weights, reported for dense); paged (block_len 16, a
+     scrambled table) ≡ dense through a prefill and 8 decode steps; int8
+     KV against bf16 KV (max |Δ logit|, greedy-token agreement,
+     reported); the greedy tokens of the scan, while and python loops
+     equal.
   8. layer path: the served model's seeded fp32 weights (all 155
      projections at full width) converted on the card by ``convert_linear``
      in modes "sonic", "block_sparse" and "clustered" (sparsity 0.5,
@@ -130,6 +146,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -175,7 +192,7 @@ from repro_torch.kernels.sonic_matmul import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
 from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import cnn, transformer  # noqa: E402
+from repro_torch.models import cnn, layers, transformer  # noqa: E402
 from repro_torch.photonic.accelerator import SonicAccelerator, SonicHWConfig  # noqa: E402
 from repro_torch.photonic.baselines import evaluate_all  # noqa: E402
 from repro_torch.photonic.mapper import cnn_workload, lm_workload  # noqa: E402
@@ -304,19 +321,57 @@ def phase_kernels(dev: torch.device) -> dict[str, float]:
     return errs
 
 
-def _seconds(fn, reps: int) -> float:
-    """Median host seconds of fn(), each run ended by a synchronize."""
+def _times(fn, reps: int) -> list[float]:
+    """Host seconds of each of ``reps`` runs of fn(), each ended by a
+    synchronize."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return sorted(times)[len(times) // 2]
+    return times
+
+
+def _seconds(fn, reps: int) -> float:
+    """Median host seconds of fn(), each run ended by a synchronize."""
+    return statistics.median(_times(fn, reps))
+
+
+def _spread(values: list[float]) -> dict:
+    return {"median": statistics.median(values), "min": min(values), "max": max(values)}
+
+
+def _loop_timing(eng, prompts, n_new: int, reps: int = 7) -> dict:
+    """Prefill ms (``generate(prompts, 1)``), decode ms/token and tok/s of
+    ``generate(prompts, n_new)``, each as the median, min and max of
+    ``reps`` runs (host clock; prefill and generate in turns, so decode
+    pairs them run by run)."""
+    pre, full = [], []
+    for _ in range(reps):
+        pre += _times(lambda: eng.generate(prompts, 1), 1)
+        full += _times(lambda: eng.generate(prompts, n_new), 1)
+    b = prompts.shape[0]
+    return {"prefill_ms": _spread([t * 1e3 for t in pre]),
+            "decode_ms_per_token": _spread([(f - p) * 1e3 / (n_new - 1)
+                                            for p, f in zip(pre, full)]),
+            "tok_s": _spread([b * n_new / f for f in full]),
+            "generate_ms": _spread([f * 1e3 for f in full])}
+
+
+def _counts(counts) -> dict:
+    """A ``kernels.counters`` difference as {kernel: launches} (those > 0)."""
+    return {name: n for name, (n, _) in counts.items() if n}
 
 
 def phase_main_path(card: str):
+    """The served model through ``launch.serve`` on the default loop,
+    "scan": the prefill and each decode step replayed from CUDA graphs,
+    with the kernels' counters true per replay; then the eager "python"
+    loop on the same weights beside it."""
     args = serve.parse_args(MAIN_ARGS)
+    if args.loop != "scan":
+        raise AssertionError(f"the launcher's default loop is {args.loop}, want scan")
     for kn in KERNELS.values():
         kn["wrapper"].launches = 0
         kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
@@ -334,20 +389,33 @@ def phase_main_path(card: str):
     if any(routes[name] != {build.TENSOR_CORES: launches[name], build.CUDA_CORES: 0}
            for name in KERNELS):
         raise AssertionError(f"main path: routes {routes}, want all on the tensor cores")
+    if eng.trace_counts != {"prefill": 1, "decode": 1}:
+        raise AssertionError(f"main path: captures {eng.trace_counts}, want one of each")
     if tokens.shape != (args.batch, args.new_tokens) or not (
             (tokens >= 0) & (tokens < eng.cfg.vocab_size)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
     if not torch.equal(serve.run_batch(eng, args), tokens):
         raise AssertionError("a second run gave other tokens")
+    if eng.trace_counts != {"prefill": 1, "decode": 1}:
+        raise AssertionError(f"a second run captured again: {eng.trace_counts}")
     prompts = serve.make_prompts(args, eng.cfg.vocab_size)
-    t_prefill = _seconds(lambda: eng.generate(prompts, 1), 7)
-    t_all = _seconds(lambda: eng.generate(prompts, args.new_tokens), 7)
-    emit({"phase": "main_path", "card": card, "launches": launches, "routes": routes,
-          "prefill_ms": t_prefill * 1e3,
-          "decode_ms_per_token": (t_all - t_prefill) * 1e3 / (args.new_tokens - 1),
-          "tok_s": args.batch * args.new_tokens / t_all,
-          "generate_ms": t_all * 1e3})
-    return eng, args, launches
+    eager = ServeEngine(eng.arch, eng.params, dataclasses.replace(eng.sc, loop="python"),
+                        device=eng.device)
+    if not torch.equal(eager.generate(prompts, args.new_tokens).cpu(), tokens):
+        raise AssertionError("the python loop gave other tokens than the graphs")
+    scan, python = _loop_timing(eng, prompts, args.new_tokens), _loop_timing(
+        eager, prompts, args.new_tokens)
+    emit({"phase": "main_path", "card": card, "loop": "scan", "launches": launches,
+          "routes": routes, "captures": eng.trace_counts,
+          "capture_seconds": eng.capture_seconds,
+          "graphed_launches": {
+              "prefill": _counts(eng.graph_launches()["prefill"][(args.batch, args.prompt_len)]),
+              "decode_step": _counts(eng.graph_launches()["decode"][args.batch])},
+          "prefill_ms": scan["prefill_ms"]["median"],
+          "decode_ms_per_token": scan["decode_ms_per_token"]["median"],
+          "tok_s": scan["tok_s"]["median"], "generate_ms": scan["generate_ms"]["median"],
+          "spread_of_7": {"scan": scan, "python": python}})
+    return eng, eager, args, launches
 
 
 def _device_kernels(fn) -> list:
@@ -359,27 +427,29 @@ def _device_kernels(fn) -> list:
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
-def phase_profile(eng, args, card: str, n_new: int = 9) -> None:
-    """Where generation spends the card's time: one ``generate`` of
-    ``n_new`` tokens, and one prefill (``generate`` of 1 token), under
-    torch.profiler (device busy time, by kernel), each against the median
-    wall time of the same call without the profiler."""
-    prompts = serve.make_prompts(args, eng.cfg.vocab_size)
-    out = {}
-    for n in (n_new, 1):
-        wall = _seconds(lambda: eng.generate(prompts, n), 5)
-        kernels = _device_kernels(lambda: eng.generate(prompts, n))
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        out[n] = {"wall_ms": wall * 1e3,
-                  "device_busy_ms": busy_ms or None,  # None: the profiler saw no device time
-                  "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms else None,
-                  "kernel_launches": sum(e.count for e in kernels)}
-        if n == n_new:
-            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-            out[n]["top_kernels"] = [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
-                                      "launches": e.count} for e in top]
-    emit({"phase": "profile", "card": card, "new_tokens": n_new, **out[n_new],
-          "prefill": out[1]})
+def phase_profile(engines: dict, args, card: str, n_new: int = 9) -> None:
+    """Where generation spends the card's time, for each loop: one
+    ``generate`` of ``n_new`` tokens, and one prefill (``generate`` of 1
+    token), under torch.profiler (device busy time, by kernel), each
+    against the median wall time of the same call without the profiler."""
+    prompts = serve.make_prompts(args, engines["scan"].cfg.vocab_size)
+    for loop, eng in engines.items():
+        out = {}
+        for n in (n_new, 1):
+            wall = _seconds(lambda: eng.generate(prompts, n), 5)
+            kernels = _device_kernels(lambda: eng.generate(prompts, n))
+            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            out[n] = {"wall_ms": wall * 1e3,
+                      "device_busy_ms": busy_ms or None,  # None: no device time seen
+                      "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms else None,
+                      "kernel_launches": sum(e.count for e in kernels)}
+            if n == n_new:
+                top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+                out[n]["top_kernels"] = [{"name": e.key[:70],
+                                          "ms": e.self_device_time_total / 1e3,
+                                          "launches": e.count} for e in top]
+        emit({"phase": "profile", "card": card, "loop": loop, "new_tokens": n_new,
+              **out[n_new], "prefill": out[1]})
 
 
 def _tree(fn, tree):
@@ -416,10 +486,14 @@ def phase_reference(eng, depth: int = 2) -> None:
                            generator=torch.Generator().manual_seed(3))
     wrappers = {name: kn["wrapper"] for name, kn in KERNELS.items()}
     prefill = depth * len(PROJECTIONS) + 1  # int8 matmul launches of one prefill
-    want_n = {INT8_MATMUL: prefill, INT8_MATVEC: 2 * prefill}  # and of the matvec, 2 steps
+    # bf16: the prefill on the matmul, the 2 decode steps on the matvec;
+    # fp32 x: all three on the tiled matmul (a row's bits do not depend on M)
+    want = {torch.bfloat16: {INT8_MATMUL: prefill, INT8_MATVEC: 2 * prefill},
+            torch.float32: {INT8_MATMUL: 3 * prefill, INT8_MATVEC: 0}}
     out = {"phase": "reference", "layers": depth}
     for dtype, tol, route in ((torch.float32, TOL, build.CUDA_CORES),
                               (torch.bfloat16, BF16_LOGIT_TOL, build.TENSOR_CORES)):
+        want_n = want[dtype]
         cfg = eng.cfg.replace(n_layers=depth, compute_dtype=str(dtype).removeprefix("torch."))
         for fn in wrappers.values():
             fn.routes = dict.fromkeys(build.ROUTES, 0)
@@ -519,6 +593,28 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
               "eager_ms": eager_ms, **timing})
         out.append(entry)
     return out
+
+
+def phase_fp32_decode_cost(eng, card: str) -> None:
+    """What sending fp32 x at M = 4 to the CUDA-core tiled matmul (every M
+    one order of sums) costs against the CUDA-core matvec it replaced on
+    that dispatch: one step's 155 served projections, replayed from a CUDA
+    graph, device ms."""
+    cfg, params, dev = eng.cfg, eng.params, eng.device
+    weights = [(cfg.d_ff if (blk, proj) == ("ffn", "wo") else cfg.d_model,
+                tuple(params["layers"][blk][proj][f][i] for f in ("qvalues", "qscales",
+                                                                   "qindices")))
+               for i in range(cfg.n_layers) for blk, proj in PROJECTIONS]
+    head = params["lm_head"]
+    weights.append((cfg.d_model, (head["qvalues"], head["qscales"], head["qindices"])))
+    xs = {k: torch.randn((4, k), device=dev) for k in (cfg.d_model, cfg.d_ff)}
+
+    def run(fn):
+        return lambda: [fn(xs[k], *w) for k, w in weights]
+
+    emit({"phase": "fp32_x_decode_cost", "card": card, "rows": 4, "launches": len(weights),
+          "cuda_core_matvec_ms": _step_ms(run(sm_kernel.sonic_matvec_int8_kernel)),
+          "tiled_matmul_ms": _step_ms(run(bs_kernel.block_sparse_matmul_int8_kernel))})
 
 
 def _route_timing(name: str, m: int, wrapper, n_ops: float, n_bytes: float, ms: float,
@@ -651,10 +747,10 @@ def _fp64_witness(dev: torch.device) -> list[dict]:
     return out
 
 
-def _rows_across(fn, x: torch.Tensor) -> dict:
+def _rows_across(fn, x: torch.Tensor, windows=WINDOWS) -> dict:
     """fn's rows at M = 1, 4, 7 against the same rows inside each of
-    WINDOWS: how many of those row pairs differ, and the largest |Δ|."""
-    windows = {m: fn(x[:m]) for m in WINDOWS}
+    ``windows``: how many of those row pairs differ, and the largest |Δ|."""
+    windows = {m: fn(x[:m]) for m in windows}
     pairs = differ = 0
     worst = 0.0
     for m in (1, 4, 7):
@@ -667,15 +763,22 @@ def _rows_across(fn, x: torch.Tensor) -> dict:
     return {"rows_differing": differ, "of": pairs, "max_abs_diff": worst}
 
 
+ROW_BITS_HELD = ("int8_bf16", "int8_op_bf16", "codebook_bf16", "int8_fp32_x",
+                 "codebook_fp32_x", "dense_bf16")
+
+
 def phase_row_bits(dev: torch.device) -> None:
     """A decode row (M = 1, 4, 7) against the same row inside windows of
     M = 8, 12, 20 (speculative verify, B·(k+1) at B = 4, k = 1, 2, 4) and
     256 (a prefill), at the five projection shapes, (128, 128) blocks,
-    sparsity 0.5.  Held bit for bit, bf16 x: the int8 pair (the fp32
-    kernel outputs as ``ops.sonic_matmul_int8`` dispatches them, and the
-    op's bf16 output) and the codebook pair (``ops.sonic_matmul``'s
-    dispatch).  Reported only: fp32 x (the CUDA-core kernels on both sides)
-    and cuBLAS ``x @ W`` in bf16 (the ``weight_quant="none"`` path)."""
+    sparsity 0.5, each pair as the served model dispatches it.  Held bit
+    for bit: bf16 x, the int8 pair (the fp32 kernel outputs as
+    ``ops.sonic_matmul_int8`` dispatches them, and the op's bf16 output)
+    and the codebook pair (``ops.sonic_matmul``'s dispatch); fp32 x, which
+    takes the CUDA-core tiled matmul at every M; and the dense bf16 path
+    (``layers.dense_apply``: cuBLAS ``x @ W`` with the rows of a call below
+    64 padded to 64) against the verify windows, its 256-row prefill
+    reported.  Reported too: cuBLAS ``x @ W`` without the padding."""
     gen = torch.Generator(device=dev).manual_seed(6)
     out = {}
     for k, n in MAIN_SHAPES:
@@ -688,29 +791,167 @@ def phase_row_bits(dev: torch.device) -> None:
         w8, wc = (q.values, q.scales, q.indices), (ids, cb, q.indices)
 
         def int8(xx):
-            fn = (sm_kernel.sonic_matvec_int8_kernel if xx.shape[0] < sm_ops.DECODE_M_THRESHOLD
+            fn = (sm_kernel.sonic_matvec_int8_kernel if sm_ops.decode_rows(xx, q.values)
                   else bs_kernel.block_sparse_matmul_int8_kernel)
             return fn(xx, *w8)
 
         def codebook(xx):
-            fn = (sm_kernel.sonic_matvec_kernel if xx.shape[0] < sm_ops.DECODE_M_THRESHOLD
+            fn = (sm_kernel.sonic_matvec_kernel if sm_ops.decode_rows(xx, ids)
                   else sm_kernel.sonic_matmul_kernel)
             return fn(xx, *wc)
 
+        def dense_apply(xx):
+            return layers.dense_apply({"kernel": dense}, xx)
+
+        verify = tuple(m for m in WINDOWS if m < 64)
         row = {}
-        for label, fn, xx, held in (
-                ("int8_bf16", int8, x.bfloat16(), True),
-                ("int8_op_bf16", lambda xx: sm_ops.sonic_matmul_int8(xx, *w8), x.bfloat16(), True),
-                ("codebook_bf16", codebook, x.bfloat16(), True),
-                ("int8_fp32_x", int8, x, False), ("codebook_fp32_x", codebook, x, False),
-                ("cublas_bf16", lambda xx: xx @ dense, x.bfloat16(), False)):
-            row[label] = _rows_across(fn, xx)
-            if held and row[label]["rows_differing"]:
+        for label, fn, xx, windows in (
+                ("int8_bf16", int8, x.bfloat16(), WINDOWS),
+                ("int8_op_bf16", lambda xx: sm_ops.sonic_matmul_int8(xx, *w8), x.bfloat16(),
+                 WINDOWS),
+                ("codebook_bf16", codebook, x.bfloat16(), WINDOWS),
+                ("int8_fp32_x", int8, x, WINDOWS), ("codebook_fp32_x", codebook, x, WINDOWS),
+                ("dense_bf16", dense_apply, x.bfloat16(), verify),
+                ("dense_bf16_vs_prefill_256", dense_apply, x.bfloat16(), (256,)),
+                ("cublas_bf16", lambda xx: xx @ dense, x.bfloat16(), WINDOWS)):
+            row[label] = _rows_across(fn, xx, windows)
+            if label in ROW_BITS_HELD and row[label]["rows_differing"]:
                 raise AssertionError(f"{k}x{n} {label}: a decode row differs from its window "
                                      f"row: {row[label]}")
         out[f"{k}x{n}"] = row
     emit({"phase": "row_bits", "decode_rows": [1, 4, 7], "windows": list(WINDOWS),
-          "held": ["int8_bf16", "int8_op_bf16", "codebook_bf16"], "by_shape": out})
+          "dense_windows": [m for m in WINDOWS if m < 64], "held": list(ROW_BITS_HELD),
+          "by_shape": out})
+
+
+def _bf16_kernels(tree):
+    """A param tree with every projection kernel in bf16 (the dense path's
+    ``x @ W`` then casts nothing)."""
+    return {k: _bf16_kernels(v) if isinstance(v, dict)
+            else (v.bfloat16() if k == "kernel" else v) for k, v in tree.items()}
+
+
+def _row_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Rows (last axis) of got that differ from want's, and the largest |Δ|."""
+    d = (got.float() - want.float()).abs()
+    return {"rows_differing": int((d > 0).any(-1).sum()), "of": d[..., 0].numel(),
+            "max_abs_diff": d.max().item()}
+
+
+def _held(what: str, diff: dict) -> dict:
+    if diff["rows_differing"]:
+        raise AssertionError(f"serving modes: {what}: {diff}")
+    return diff
+
+
+def phase_serving_modes(eng, eager, card: str) -> None:
+    """The transformer's serving modes at full width (tinyllama-1.1b, batch
+    4, prompt 64), each mode against the path it must equal, on the served
+    int8 weights (sparsity 0.5) and on the dense bf16 weights of the same
+    seed (``weight_quant="none"``):
+
+    * a verify window at k = 4 (``decode_chunk``, 20 rows) ≡ 5 sequential
+      decode steps, logits bit for bit, both weight formats, bf16 and int8
+      KV (held);
+    * chunk-resume in chunks of 16 ≡ whole-prompt prefill, last logits of
+      each chunk and the cache (held for int8 weights, reported for dense);
+    * paged (block_len 16, a scrambled block table) ≡ dense: a chunk-resume
+      prefill and 8 greedy decode steps (held);
+    * int8 KV against bf16 KV, teacher-forced on the bf16 run's greedy
+      tokens: max |Δ logit| and greedy-token agreement (reported);
+    * greedy tokens of the "scan", "while" and "python" loops (held equal).
+    """
+    cfg, dev = eng.cfg, eng.device
+    b, s, k1, chunk, bl, steps = 4, 64, 5, 16, 16, 8
+    max_len = 112  # 7 blocks of 16: room for the prompt and the steps
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + k1), generator=gen, device=dev)
+    raw = eng.arch.init_params(torch.Generator(device=dev).manual_seed(0), dev)  # served seed
+    weights = {"int8": eng.params, "dense": _bf16_kernels(raw)}
+    del raw
+
+    def fwd(params, t, cache, pos=None, **kw):
+        cp = None if pos is None else torch.full((b,), pos, device=dev)
+        return transformer.forward(params, cfg, tokens=t, cache=cache, cache_pos=cp, **kw)
+
+    def cache_of(quant=False):
+        return transformer.init_cache(cfg, b, max_len, dev, cache_quant_int8=quant)
+
+    out = {"phase": "serving_modes", "card": card, "batch": b, "prompt_len": s,
+           "verify_rows": b * k1, "verify": {}, "chunk_resume": {}}
+    for wname, params in weights.items():
+        for quant in (False, True):
+            _, cache = fwd(params, toks[:, :s], cache_of(quant))
+            seq = {k: v.clone() for k, v in cache.items()}
+            window, cache = fwd(params, toks[:, s:], cache, s, decode_chunk=True)
+            rows = []
+            for i in range(k1):
+                lg, seq = fwd(params, toks[:, s + i:s + i + 1], seq, s + i)
+                rows.append(lg[:, 0])
+            key = f"{wname}_{'int8' if quant else 'bf16'}_kv"
+            out["verify"][key] = _held(f"verify {key}", _row_diff(window, torch.stack(rows, 1)))
+            if not all(torch.equal(cache[n], seq[n]) for n in cache):
+                raise AssertionError(f"serving modes: verify {key}: the caches differ")
+        whole_lg, whole = fwd(params, toks[:, :s], cache_of())
+        cache, lgs = cache_of(), []
+        for c0 in range(0, s, chunk):
+            lg, cache = fwd(params, toks[:, c0:c0 + chunk], cache, c0)
+            lgs.append(lg)
+        diff = _row_diff(torch.cat(lgs, 1), whole_lg)
+        diff["cache_equal"] = all(torch.equal(whole[n][:, :, :s], cache[n][:, :, :s])
+                                  for n in cache)
+        if wname == "int8":
+            _held("chunk-resume (int8 weights)", diff)
+            if not diff["cache_equal"]:
+                raise AssertionError("serving modes: chunk-resume wrote another cache")
+        out["chunk_resume"][wname] = {**diff, "held": wname == "int8"}
+    del weights["dense"]
+
+    params = eng.params
+    mb = max_len // bl
+    table = (torch.randperm(b * mb, generator=torch.Generator().manual_seed(6)) + b).reshape(
+        b, mb).int().to(dev)
+    pool = transformer.init_paged_cache(cfg, b + b * mb, bl, dev)
+    dense_lg, dense = fwd(params, toks[:, :s], cache_of(), 0)
+    paged_lg, pool = fwd(params, toks[:, :s], pool, 0, block_table=table)
+    pairs = [(paged_lg, dense_lg)]
+    tok = dense_lg[:, -1].argmax(-1)
+    for i in range(steps):
+        dense_lg, dense = fwd(params, tok[:, None], dense, s + i)
+        paged_lg, pool = fwd(params, tok[:, None], pool, s + i, block_table=table)
+        pairs.append((paged_lg, dense_lg))
+        tok = dense_lg[:, 0].argmax(-1)
+    out["paged_vs_dense"] = _held("paged vs dense", _row_diff(
+        torch.cat([p for p, _ in pairs], 1), torch.cat([d for _, d in pairs], 1)))
+    out["paged_vs_dense"].update(block_len=bl, blocks=b + b * mb)
+
+    runs = {}
+    for quant in (False, True):
+        lg, cache = fwd(params, toks[:, :s], cache_of(quant))
+        lgs, tok = [lg[:, -1]], (runs[False][1][0] if quant else lg[:, -1].argmax(-1))
+        feed = [tok]
+        for i in range(steps):
+            lg, cache = fwd(params, tok[:, None], cache, s + i)
+            lgs.append(lg[:, 0])
+            tok = runs[False][1][i + 1] if quant else lg[:, 0].argmax(-1)
+            feed.append(tok)
+        runs[quant] = (torch.stack(lgs, 1).float(), feed)
+    (l16, _), (l8, _) = runs[False], runs[True]
+    out["int8_kv_vs_bf16_kv"] = {
+        "max_abs_logit_diff": (l8 - l16).abs().max().item(),
+        "max_abs_logit": l16.abs().max().item(),
+        "greedy_token_agreement": (l8.argmax(-1) == l16.argmax(-1)).float().mean().item(),
+        "steps": steps + 1}
+
+    loops = {"scan": eng, "python": eager,
+             "while": ServeEngine(eng.arch, params, dataclasses.replace(eng.sc, loop="while"),
+                                  device=dev)}
+    prompts = toks[:, :s]
+    got = {loop: e.generate(prompts, 32) for loop, e in loops.items()}
+    if not all(torch.equal(got[loop], got["python"]) for loop in got):
+        raise AssertionError("serving modes: the loops gave other greedy tokens")
+    out["loops_equal"] = {"loops": list(got), "tokens": int(got["scan"].numel())}
+    emit(out)
 
 
 def _reset_routes() -> None:
@@ -1155,12 +1396,14 @@ def main() -> None:
 
     phase_build()
     errs = phase_kernels(dev)
-    eng, args, launches = phase_main_path(card)
-    phase_profile(eng, args, card)
+    eng, eager, args, launches = phase_main_path(card)
+    phase_profile({"scan": eng, "python": eager}, args, card)
     phase_reference(eng)
     kernels = phase_timing(eng, launches, errs)
+    phase_fp32_decode_cost(eng, card)
     layer_errs = phase_layer_kernels(dev)
     phase_row_bits(dev)
+    phase_serving_modes(eng, eager, card)
     converted, layer_launches = phase_layer_path(eng, card)
     kernels += phase_layer_timing(converted, layer_launches, layer_errs)
     del converted

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.sonic_layers import block_sparse_int8_matmul_plain
 from repro_torch.kernels import build
+from repro_torch.utils.rows import plain_rows
 
 
 def block_sparse_matmul_int8_plain(
@@ -47,9 +48,11 @@ def block_sparse_matmul_int8_plain(
     indices: torch.Tensor,  # (Nb, R) int32
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: gather the kept K-blocks of x,
-    dequantize, contract in fp32.  Returns y (M, Nb·bn) fp32."""
+    dequantize, contract in fp32.  Returns y (M, Nb·bn) fp32; a row's bits
+    do not depend on M (``utils.rows``)."""
     k_blocks = x.shape[-1] // values.shape[2]
-    return block_sparse_int8_matmul_plain(x.float(), values, scales, indices, k_blocks)
+    return plain_rows(lambda xx: block_sparse_int8_matmul_plain(
+        xx.float(), values, scales, indices, k_blocks), x)
 
 
 def block_sparse_matmul_int8_kernel(
@@ -83,11 +86,15 @@ def block_sparse_matmul_plain(
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: gather the kept K-blocks of x
     and contract them with the kept blocks, both in fp32.  Returns y
-    (M, Nb·bn) fp32."""
+    (M, Nb·bn) fp32; a row's bits do not depend on M (``utils.rows``)."""
     nb, _, bk, bn = values.shape
-    m = x.shape[0]
-    xg = x.float().reshape(m, -1, bk)[:, indices.long()]  # (M, Nb, R, bk)
-    return torch.einsum("mnrk,nrkj->mnj", xg, values.float()).reshape(m, nb * bn)
+
+    def product(xx: torch.Tensor) -> torch.Tensor:
+        m = xx.shape[0]
+        xg = xx.float().reshape(m, -1, bk)[:, indices.long()]  # (M, Nb, R, bk)
+        return torch.einsum("mnrk,nrkj->mnj", xg, values.float()).reshape(m, nb * bn)
+
+    return plain_rows(product, x)
 
 
 def block_sparse_matmul_kernel(

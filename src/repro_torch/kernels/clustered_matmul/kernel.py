@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils.rows import plain_rows
 
 
 def clustered_matmul_plain(
@@ -34,8 +35,10 @@ def clustered_matmul_plain(
     codebook: torch.Tensor,  # (C,) fp32
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: look each id up in the
-    codebook and contract in fp32.  Returns y (M, N) fp32."""
-    return x.float() @ codebook.float()[ids.long()]
+    codebook and contract in fp32.  Returns y (M, N) fp32; a row's bits do
+    not depend on M (``utils.rows``)."""
+    w = codebook.float()[ids.long()]
+    return plain_rows(lambda xx: xx.float() @ w, x)
 
 
 def clustered_matmul_kernel(

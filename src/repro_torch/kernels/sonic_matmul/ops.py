@@ -1,10 +1,15 @@
 """Public wrappers + weight converter for the SONIC matmuls: shape dispatch
 between the decode-shaped matvec kernels and the tiled matmul kernels, for
-the codebook format (``SonicWeight``) and the int8 format.  For bf16 x with
-blocks the tensor cores take (``build.mma_route``), both sides of the
-dispatch do the same arithmetic, so a row's bits do not depend on whether
-the flattened M reaches ``DECODE_M_THRESHOLD``; fp32 x and other blocks run
-the CUDA-core kernels, whose sums run in another order on each side."""
+the codebook format (``SonicWeight``) and the int8 format.
+
+A row's bits do not depend on how many rows come with it, so a decode step
+and its speculative-verify window agree.  For bf16 x with blocks the
+tensor cores take (``build.mma_route``), both sides of the dispatch do the
+same arithmetic, and flattened M < ``DECODE_M_THRESHOLD`` takes the decode
+kernel.  fp32 x and other blocks (``serve_quant``'s 16×16 among them) take
+the CUDA-core tiled matmul at every M: the CUDA-core matvec sums in another
+order, so it is not on this dispatch (``sonic_matvec`` / ``sonic_matvec_int8``
+still reach it)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,13 +18,24 @@ import torch
 
 from repro_torch.core.clustering import ClusteringConfig, assign_clusters, cluster_weights
 from repro_torch.core.sonic_layers import _densify, make_block_sparse
+from repro_torch.kernels import build
 from repro_torch.kernels.block_sparse_matmul import kernel as bs_kernel
 from repro_torch.kernels.sonic_matmul import kernel
 
 # Flattened row counts below this (the reference's 8) take the decode-shaped
-# matvec kernels, which are instantiated for 1..MAX_ROWS rows; larger ones
-# the tiled matmul kernels.
+# matvec kernels on the tensor-core route, which are instantiated for
+# 1..MAX_ROWS rows; larger ones, and every launch off that route, the tiled
+# matmul kernels.
 DECODE_M_THRESHOLD = kernel.MAX_ROWS + 1
+
+
+def decode_rows(x2: torch.Tensor, blocks: torch.Tensor) -> bool:
+    """Whether x2 (M, K) takes the decode kernel against (…, bk, bn)
+    blocks: M below the threshold, on the tensor-core route (on the CPU
+    every route is the plain version, whose rows do not depend on M)."""
+    return (x2.shape[0] < DECODE_M_THRESHOLD
+            and build.mma_route(blocks.shape[-2], blocks.shape[-1], x2.dtype)
+            == build.TENSOR_CORES)
 
 
 @dataclasses.dataclass
@@ -65,15 +81,15 @@ def make_sonic_weight(
 def sonic_matmul(x: torch.Tensor, w: SonicWeight, *, bm: int = 256) -> torch.Tensor:
     """x (..., K) @ SONIC weight → (..., N) in x.dtype.
 
-    Shape-dispatched: flattened M < ``DECODE_M_THRESHOLD`` takes the matvec
-    kernel, larger M the tiled matmul kernel.  ``bm`` is the reference's M
-    tile, kept for its signature: the kernel picks its own tiles and masks
-    the ragged M edge, and no row's result depends on the tiling, so ``bm``
-    does not change the result."""
+    Shape-dispatched: flattened M < ``DECODE_M_THRESHOLD`` on the
+    tensor-core route takes the matvec kernel, the rest the tiled matmul
+    kernel.  ``bm`` is the reference's M tile, kept for its signature: the
+    kernel picks its own tiles and masks the ragged M edge, and no row's
+    result depends on the tiling, so ``bm`` does not change the result."""
     del bm
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    fn = (kernel.sonic_matvec_kernel if x2.shape[0] < DECODE_M_THRESHOLD
+    fn = (kernel.sonic_matvec_kernel if decode_rows(x2, w.idx_values)
           else kernel.sonic_matmul_kernel)
     y = fn(x2, w.idx_values, w.codebook, w.indices)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
@@ -95,11 +111,11 @@ def sonic_matmul_int8(
     indices: torch.Tensor,  # (Nb, R) int32
 ) -> torch.Tensor:
     """Int8-weight x (..., K) @ W → (..., N) in x.dtype, shape-dispatched:
-    flattened M < ``DECODE_M_THRESHOLD`` takes the matvec kernel, larger M
-    the tiled block-sparse matmul kernel."""
+    flattened M < ``DECODE_M_THRESHOLD`` on the tensor-core route takes the
+    matvec kernel, the rest the tiled block-sparse matmul kernel."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x2.shape[0] < DECODE_M_THRESHOLD:
+    if decode_rows(x2, values):
         y = kernel.sonic_matvec_int8_kernel(x2, values, scales, indices)
     else:
         y = bs_kernel.block_sparse_matmul_int8_kernel(x2, values, scales, indices)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils.rows import plain_rows
 
 
 def sparse_matvec_plain(
@@ -26,8 +27,10 @@ def sparse_matvec_plain(
     wt: torch.Tensor,  # (K, N) bf16 / fp32
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: gather the rows idx names and
-    contract in fp32.  Returns y (B, N) fp32."""
-    return x_nz.float() @ wt.index_select(0, idx.long()).float()
+    contract in fp32.  Returns y (B, N) fp32; a row's bits do not depend on
+    B (``utils.rows``)."""
+    rows = wt.index_select(0, idx.long()).float()
+    return plain_rows(lambda xx: xx.float() @ rows, x_nz)
 
 
 def sparse_matvec_kernel(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:

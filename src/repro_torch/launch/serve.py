@@ -1,7 +1,11 @@
 """Serving launcher: one fixed batch through ``ServeEngine.generate``.
 
 Weights are random, made from ``--seed`` on the device; prompts from
-``--seed + 1``.  Prints tok/s and the first two token rows.
+``--seed + 1``.  Prints tok/s and the first two token rows.  ``--loop``
+picks the decode loop (``scan``, the default: one CUDA graph per decode
+step, replayed; ``while``: the same with an eos early exit; ``python``: the
+eager loop) and ``--cache-quant-int8`` the int8 KV cache, as in the
+reference's launcher.
 
 Usage, on the card (the CUDA kernels build into ``build/`` at first use,
 before the timed run):
@@ -37,6 +41,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--loop", default="scan", choices=("scan", "while", "python"),
+                    help="decode loop: one CUDA graph per decode step replayed "
+                         "(scan, default), the same with an eos early exit "
+                         "(while), or the eager host loop (python)")
     ap.add_argument("--eos-token", type=int, default=-1)
     ap.add_argument("--weight-quant", default="none", choices=("none", "int8"),
                     help="serve int8 block-sparse weights through the "
@@ -44,6 +52,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--weight-quant-sparsity", type=float, default=0.0,
                     help="block-prune the served weights to this sparsity "
                          "before int8 quantization (requires --weight-quant int8)")
+    ap.add_argument("--cache-quant-int8", action="store_true",
+                    help="store the KV cache as int8 with one fp32 scale per "
+                         "position and head")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
@@ -73,10 +84,12 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
         max_len=args.prompt_len + args.new_tokens + 1,
         temperature=args.temperature,
         eos_token=args.eos_token,
+        loop=args.loop,
         weight_quant=args.weight_quant,
         weight_quant_sparsity=args.weight_quant_sparsity,
     )
-    return ServeEngine(arch, params, sc, device=device)
+    return ServeEngine(arch, params, sc, device=device,
+                       cache_quant_int8=args.cache_quant_int8)
 
 
 def make_prompts(args: argparse.Namespace, vocab_size: int) -> torch.Tensor:

@@ -1,7 +1,17 @@
-"""Arch registry: maps a ported ``--arch`` id to its config and model module.
+"""Arch registry: maps a ported ``--arch`` id to its config and model module,
+with the transformer family's serving support rules and cache contracts.
 
-A minimal counterpart of ``repro.models.registry``: the dense decoder
-(``models.transformer``) is the only ported family.
+A counterpart of ``repro.models.registry``: the dense decoder
+(``models.transformer``) is the only ported family.  The reference checks
+its cache contracts with ``jax.eval_shape``; the port runs the same
+forwards for real on the ``meta`` device (shapes and dtypes, no data, so
+the full-width config costs nothing), over raw params made there.
+
+Cache layout contract (as in the reference): every cache leaf is
+(n_layers, B, …) with the batch / slot axis on ``CACHE_SLOT_AXIS``; a
+paged pool's leaves are (n_layers, n_blocks, block_len, …) with the block
+axis on ``CACHE_BLOCK_AXIS``.  The slot and block helpers below write in
+place and return the cache.
 """
 from __future__ import annotations
 
@@ -12,22 +22,267 @@ import torch
 from repro_torch.configs.base import ModelConfig, get_config, reduced_config
 from repro_torch.models import transformer
 
+META = torch.device("meta")
+
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     arch_id: str
     cfg: ModelConfig
 
-    def init_params(self, gen: torch.Generator, device):
-        return transformer.init_params(self.cfg, gen, device)
+    def init_params(self, gen: torch.Generator | None, device,
+                    cfg: ModelConfig | None = None):
+        return transformer.init_params(cfg or self.cfg, gen, device)
 
-    def forward(self, params, **kw):
-        return transformer.forward(params, self.cfg, **kw)
+    def forward(self, params, cfg: ModelConfig | None = None, **kw):
+        return transformer.forward(params, cfg or self.cfg, **kw)
 
-    def init_cache(self, batch: int, max_len: int, device):
-        return transformer.init_cache(self.cfg, batch, max_len, device)
+    def init_cache(self, batch: int, max_len: int, device, cfg: ModelConfig | None = None,
+                   cache_quant_int8: bool = False):
+        """Dense KV cache; ``cache_quant_int8`` is the reference's
+        ``MeshPlan.cache_quant_int8`` (int8 k / v and fp32 scales)."""
+        return transformer.init_cache(cfg or self.cfg, batch, max_len, device,
+                                      cache_quant_int8=cache_quant_int8)
+
+    # -- chunked prefill, speculative decoding, paged KV (serving) ----------
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        return self.chunked_prefill_skip_reason() == ""
+
+    def chunked_prefill_skip_reason(self) -> str:
+        """'' when the family can resume prefill at a nonzero start position
+        over an existing cache prefix, else why not."""
+        if self.cfg.family != "dense":
+            return f"{self.cfg.family} family is not ported"
+        return ""
+
+    @property
+    def supports_spec_decode(self) -> bool:
+        return self.spec_decode_skip_reason() == ""
+
+    def spec_decode_skip_reason(self) -> str:
+        """The verify pass is a chunk-resume forward (``decode_chunk``) plus
+        cursor rollback over a growing KV cache, so the support matrix is the
+        chunked-prefill one.  The int8 KV cache is not excluded: verify rows
+        attend the values sequential decode attends."""
+        return self.chunked_prefill_skip_reason()
+
+    @property
+    def supports_paged_kv(self) -> bool:
+        return self.paged_skip_reason() == ""
+
+    def paged_skip_reason(self) -> str:
+        """'' when the family supports the paged-KV serving layout."""
+        if self.cfg.family != "dense":
+            return f"{self.arch_id}: model family has no init_paged_cache"
+        return ""
+
+    def init_paged_cache(self, n_blocks: int, block_len: int, device,
+                         cfg: ModelConfig | None = None, cache_quant_int8: bool = False):
+        reason = self.paged_skip_reason()
+        if reason:
+            raise NotImplementedError(f"{self.arch_id}: {reason}")
+        return transformer.init_paged_cache(cfg or self.cfg, n_blocks, block_len, device,
+                                            cache_quant_int8=cache_quant_int8)
 
 
 def get_arch(arch_id: str, reduced: bool = False) -> Arch:
     cfg = reduced_config(arch_id) if reduced else get_config(arch_id)
     return Arch(arch_id=arch_id, cfg=cfg)
+
+
+# ------------------------------------------------------------ slot caches
+
+CACHE_SLOT_AXIS = 1  # every cache leaf is (n_layers, B, …)
+CACHE_BLOCK_AXIS = 1  # paged pools put the block axis where the slot axis is
+
+
+def write_cache_slot(cache: dict, sub_cache: dict, slot: int | torch.Tensor) -> dict:
+    """Write a batch-1 sub-cache into row ``slot`` of a slot cache, in place;
+    no other slot's rows are touched (``check_slot_cache_contract``).
+    ``slot`` may be a tensor, as the reference's may be traced; it clamps
+    into range as ``dynamic_update_slice_in_dim`` clamps it."""
+    for name, full in cache.items():
+        one = sub_cache[name]
+        s = torch.clamp(torch.as_tensor(slot, device=full.device), 0,
+                        full.shape[CACHE_SLOT_AXIS] - 1)
+        full.index_copy_(CACHE_SLOT_AXIS, s.reshape(1).long(), one.to(full.dtype))
+    return cache
+
+
+def gather_cache_slots(cache: dict, slots: torch.Tensor) -> dict:
+    """Rows ``slots`` (B,) of a slot cache as a batch-B sub-cache (a copy).
+    Out-of-range ids (the masked dummy rows of a fixed-width launch) clamp
+    to the last slot, as the reference's mode="clip"."""
+    return {name: full.index_select(
+        CACHE_SLOT_AXIS, torch.clamp(slots.long(), 0, full.shape[CACHE_SLOT_AXIS] - 1))
+        for name, full in cache.items()}
+
+
+def write_cache_slots(cache: dict, sub_cache: dict, slots: torch.Tensor) -> dict:
+    """Scatter B sub-cache rows back into slots ``slots`` (B,), in place.
+    Real slot ids are distinct (one request per slot); out-of-range ids drop,
+    as the reference's mode="drop", with no host sync: each is sent to the
+    first real row's slot with that row's values (or, with no real row, to
+    rewrite what its clamped slot holds), so no slot gets two values."""
+    for name, full in cache.items():
+        n = full.shape[CACHE_SLOT_AXIS]
+        valid = (slots >= 0) & (slots < n)
+        first = torch.argmax(valid.to(torch.int32)).reshape(1)  # 0 when none is real
+        target = torch.clamp(slots.long(), 0, n - 1)
+        rows = sub_cache[name].to(full.dtype)
+        sink = torch.where(valid[first], rows.index_select(CACHE_SLOT_AXIS, first),
+                           full.index_select(CACHE_SLOT_AXIS, target[first]))
+        shape = [1] * rows.dim()
+        shape[CACHE_SLOT_AXIS] = -1
+        full.index_copy_(CACHE_SLOT_AXIS, torch.where(valid, target, target[first]),
+                         torch.where(valid.view(shape), rows, sink))
+    return cache
+
+
+def write_cache_block(cache: dict, sub_cache: dict, blocks: torch.Tensor) -> dict:
+    """Install a batch-1 prefill cache, leaves (L, 1, nb·block_len, …), into
+    the physical blocks ``blocks`` (nb,) of a paged pool, in place (ids are
+    distinct by the allocator's contract; no other block is touched)."""
+    nb = blocks.shape[0]
+    for name, full in cache.items():
+        one = sub_cache[name]
+        bl = full.shape[CACHE_BLOCK_AXIS + 1]
+        if one.shape[2] != nb * bl:
+            raise ValueError(f"{name}: sub-cache length {one.shape[2]} is not "
+                             f"{nb} blocks of {bl}")
+        o = one[:, 0].reshape(one.shape[0], nb, bl, *one.shape[3:]).to(full.dtype)
+        full.index_copy_(CACHE_BLOCK_AXIS, blocks.long(), o)
+    return cache
+
+
+# -------------------------------------------------------- cache contracts
+
+
+def _specs(cache: dict) -> dict:
+    return {name: (tuple(t.shape), t.dtype) for name, t in cache.items()}
+
+
+def _assert_same(arch: Arch, a: dict, b: dict, what: str) -> None:
+    if list(a) != list(b):
+        raise AssertionError(f"{arch.arch_id}: {what} changed the cache leaves "
+                             f"{list(a)} → {list(b)}")
+    bad = [(n, a[n], b[n]) for n in a if a[n] != b[n]]
+    if bad:
+        raise AssertionError(f"{arch.arch_id}: {what} changed leaf specs: {bad}")
+
+
+def _meta_params(arch: Arch, cfg: ModelConfig):
+    return arch.init_params(None, META, cfg)
+
+
+def _tokens(b: int, s: int) -> torch.Tensor:
+    return torch.zeros((b, s), dtype=torch.long, device=META)
+
+
+def check_decode_cache_carry(arch: Arch, batch: int = 2, max_len: int = 8,
+                             cfg: ModelConfig | None = None,
+                             cache_quant_int8: bool = False) -> None:
+    """One decode step must map the cache to the same leaves (names,
+    shapes, dtypes): the contract the captured decode step relies on, since
+    it updates the engine's cache in place."""
+    cfg = cfg or arch.cfg
+    cache = arch.init_cache(batch, max_len, META, cfg, cache_quant_int8)
+    before = _specs(cache)
+    _, out = arch.forward(_meta_params(arch, cfg), cfg, tokens=_tokens(batch, 1), cache=cache,
+                          cache_pos=torch.zeros((batch,), dtype=torch.long, device=META))
+    _assert_same(arch, before, _specs(out), "decode")
+
+
+def check_slot_cache_contract(arch: Arch, max_len: int = 8, cfg: ModelConfig | None = None,
+                              cache_quant_int8: bool = False) -> None:
+    """The batch dim of every cache leaf, and only it, lives on axis
+    ``CACHE_SLOT_AXIS``: checked by comparing caches at two batch sizes."""
+    cfg = cfg or arch.cfg
+    a, b = 3, 5
+    ca = _specs(arch.init_cache(a, max_len, META, cfg, cache_quant_int8))
+    cb = _specs(arch.init_cache(b, max_len, META, cfg, cache_quant_int8))
+    if list(ca) != list(cb):
+        raise AssertionError(f"{arch.arch_id}: cache leaves depend on batch size")
+    bad = [(n, ca[n], cb[n]) for n in ca
+           if ca[n][1] != cb[n][1] or ca[n][0][CACHE_SLOT_AXIS] != a
+           or cb[n][0] != tuple(b if d == CACHE_SLOT_AXIS else s
+                                for d, s in enumerate(ca[n][0]))]
+    if bad:
+        raise AssertionError(f"{arch.arch_id}: cache leaves whose batch dim is not axis "
+                             f"{CACHE_SLOT_AXIS}: {bad}")
+
+
+def check_slots_cache_contract(arch: Arch, n_slots: int = 4, chunk: int = 2,
+                               max_len: int = 8, cfg: ModelConfig | None = None,
+                               cache_quant_int8: bool = False) -> None:
+    """The multi-slot scatter + chunk-resume contract of batched prefill:
+    gather → write round-trips the slot cache to the same leaves; a
+    chunk-resume forward (B, C) at per-row offsets maps the gathered cache
+    to the same leaves and gives (B, C, V) logits; and, with paged KV, the
+    paged twin maps the pool to the same leaves.  Raises
+    NotImplementedError with ``chunked_prefill_skip_reason`` where the
+    family has none."""
+    cfg = cfg or arch.cfg
+    reason = arch.chunked_prefill_skip_reason()
+    if reason:
+        raise NotImplementedError(f"{arch.arch_id}: {reason}")
+    b = n_slots - 1  # a partial group, like a real admit round
+    cache = arch.init_cache(n_slots, max_len, META, cfg, cache_quant_int8)
+    before = _specs(cache)
+    slots = torch.arange(b, device=META)
+    small = gather_cache_slots(cache, slots)
+    _assert_same(arch, before, _specs(write_cache_slots(cache, small, slots)),
+                 "slot gather/scatter round-trip")
+    bad = [n for n, t in small.items() if t.shape[CACHE_SLOT_AXIS] != b]
+    if bad:
+        raise AssertionError(f"{arch.arch_id}: gathered leaves {bad} lack batch {b}")
+    params = _meta_params(arch, cfg)
+    starts = torch.zeros((b,), dtype=torch.long, device=META)
+    small_before = _specs(small)
+    logits, small = arch.forward(params, cfg, tokens=_tokens(b, chunk), cache=small,
+                                 cache_pos=starts)
+    _assert_same(arch, small_before, _specs(small), "chunk-resume forward")
+    if tuple(logits.shape) != (b, chunk, cfg.vocab_size):
+        raise AssertionError(f"{arch.arch_id}: chunk-resume logits {tuple(logits.shape)}")
+    if arch.supports_paged_kv:
+        block_len = max(max_len // 4, 1)
+        pool = arch.init_paged_cache(n_slots + 2, block_len, META, cfg, cache_quant_int8)
+        pool_before = _specs(pool)
+        table = torch.zeros((b, max_len // block_len), dtype=torch.int32, device=META)
+        _, pool = arch.forward(params, cfg, tokens=_tokens(b, chunk), cache=pool,
+                               cache_pos=starts, block_table=table)
+        _assert_same(arch, pool_before, _specs(pool), "paged chunk-resume forward")
+
+
+def check_paged_cache_contract(arch: Arch, n_slots: int = 2, block_len: int = 4,
+                               max_blocks: int = 3, cfg: ModelConfig | None = None,
+                               cache_quant_int8: bool = False) -> None:
+    """Pool leaves carry the block axis on ``CACHE_BLOCK_AXIS`` and the
+    in-block position right after it (compared at two pool sizes), and one
+    paged decode step maps the pool to the same leaves.  Raises
+    NotImplementedError with ``paged_skip_reason`` where unsupported."""
+    cfg = cfg or arch.cfg
+    reason = arch.paged_skip_reason()
+    if reason:
+        raise NotImplementedError(f"{arch.arch_id}: {reason}")
+    a, b = 5, 7
+    la = _specs(arch.init_paged_cache(a, block_len, META, cfg, cache_quant_int8))
+    lb = _specs(arch.init_paged_cache(b, block_len, META, cfg, cache_quant_int8))
+    if list(la) != list(lb):
+        raise AssertionError(f"{arch.arch_id}: pool leaves depend on n_blocks")
+    bad = [(n, la[n], lb[n]) for n in la
+           if la[n][1] != lb[n][1] or la[n][0][CACHE_BLOCK_AXIS] != a
+           or la[n][0][CACHE_BLOCK_AXIS + 1] != block_len
+           or lb[n][0] != tuple(b if d == CACHE_BLOCK_AXIS else s
+                                for d, s in enumerate(la[n][0]))]
+    if bad:
+        raise AssertionError(f"{arch.arch_id}: pool leaves whose block axis is not axis "
+                             f"{CACHE_BLOCK_AXIS} (or block_len not after it): {bad}")
+    pool = arch.init_paged_cache(a, block_len, META, cfg, cache_quant_int8)
+    before = _specs(pool)
+    _, out = arch.forward(_meta_params(arch, cfg), cfg, tokens=_tokens(n_slots, 1), cache=pool,
+                          cache_pos=torch.zeros((n_slots,), dtype=torch.long, device=META),
+                          block_table=torch.zeros((n_slots, max_blocks), dtype=torch.int32,
+                                                  device=META))
+    _assert_same(arch, before, _specs(out), "paged decode")

@@ -127,8 +127,10 @@ def test_all_zero_weight_gives_exact_zeros(m):
 
 
 def test_decode_threshold_dispatch_counts_launches(monkeypatch):
-    """Flattened M < DECODE_M_THRESHOLD goes to the matvec kernel, larger M
-    to the matmul kernel.  A fake launcher records each call, so the real
+    """On the tensor-core route (bf16 x, (32, 64) blocks) flattened M <
+    DECODE_M_THRESHOLD goes to the matvec kernel, larger M to the matmul
+    kernel; off it (fp32 x) every M goes to the matmul kernel, whose rows
+    do not depend on M.  A fake launcher records each call, so the real
     wrappers run their device branch and count their launches; the CPU
     path counts none."""
     assert sm_ops.DECODE_M_THRESHOLD == 8
@@ -144,15 +146,20 @@ def test_decode_threshold_dispatch_counts_launches(monkeypatch):
     arrays = _port_weights()
     meta = [a.to("meta") for a in arrays]
     for lead in [(1,), (7,), (2, 3), (8,), (2, 1, 9)]:
-        y = sm_ops.sonic_matmul_int8(torch.empty((*lead, K), device="meta"), *meta)
+        y = sm_ops.sonic_matmul_int8(
+            torch.empty((*lead, K), device="meta", dtype=torch.bfloat16), *meta)
         assert y.shape == (*lead, N)
-    assert calls == [("sonic_matvec_int8", 1), ("sonic_matvec_int8", 7),
-                     ("sonic_matvec_int8", 6), ("block_sparse_matmul_int8", 8),
-                     ("block_sparse_matmul_int8", 18)]
+    assert calls == [("sonic_matvec_int8_mma", 1), ("sonic_matvec_int8_mma", 7),
+                     ("sonic_matvec_int8_mma", 6), ("block_sparse_matmul_int8_mma", 8),
+                     ("block_sparse_matmul_int8_mma", 18)]
     assert sm_kernel.sonic_matvec_int8_kernel.launches == 3
     assert bs_kernel.block_sparse_matmul_int8_kernel.launches == 2
+    for m in (1, 7):  # fp32 x: the CUDA-core tiled matmul at every M
+        sm_ops.sonic_matmul_int8(torch.empty((m, K), device="meta"), *meta)
+    assert calls[5:] == [("block_sparse_matmul_int8", 1), ("block_sparse_matmul_int8", 7)]
+    assert bs_kernel.block_sparse_matmul_int8_kernel.launches == 4
     sm_ops.sonic_matmul_int8(torch.from_numpy(_x(3)), *arrays)  # CPU: plain
-    assert len(calls) == 5 and sm_kernel.sonic_matvec_int8_kernel.launches == 3
+    assert len(calls) == 7 and sm_kernel.sonic_matvec_int8_kernel.launches == 3
 
 
 def test_non_cpu_tensor_without_card_raises():
@@ -340,9 +347,10 @@ def test_new_kernels_zero_rows_and_weights_give_exact_zeros():
 
 
 def test_new_ops_dispatch_and_count_launches(monkeypatch):
-    """sonic_matmul sends flattened M < 8 to the matvec kernel and larger M
-    to the tiled kernel; block_sparse_matmul and clustered_matmul send every
-    M to their kernel.  Fake launchers record each call, so the wrappers run
+    """sonic_matmul sends flattened M < 8 of bf16 x (the tensor-core route)
+    to the matvec kernel and larger M, and fp32 x at every M, to the tiled
+    kernel; block_sparse_matmul and clustered_matmul send every M to their
+    kernel.  Fake launchers record each call, so the wrappers run
     their device branch and count; the CPU path counts nothing."""
     calls = []
 
@@ -373,22 +381,25 @@ def test_new_ops_dispatch_and_count_launches(monkeypatch):
     bw = BlockSparseWeight(torch.empty(ids.shape, device="meta"), indices, 8)
     for lead in [(1,), (2, 3), (8,), (2, 1, 9)]:
         x = torch.empty((*lead, K), device="meta")
-        assert sm_ops.sonic_matmul(x, sw).shape == (*lead, N)
+        assert sm_ops.sonic_matmul(x.bfloat16(), sw).shape == (*lead, N)
         assert bs_ops.block_sparse_matmul(x, bw).shape == (*lead, N)
         assert cm_ops.clustered_matmul(x, torch.empty((K, 40), dtype=torch.int8, device="meta"),
                                        torch.empty(8, device="meta")).shape == (*lead, 40)
     kinds = [name for name, _ in calls]
-    assert kinds[0::3] == ["sonic_matvec", "sonic_matvec", "sonic_matmul", "sonic_matmul"]
+    assert kinds[0::3] == ["sonic_matvec_mma", "sonic_matvec_mma", "sonic_matmul_mma",
+                           "sonic_matmul_mma"]
     assert set(kinds[1::3]) == {"block_sparse_matmul"} and set(kinds[2::3]) == {"clustered_matmul"}
     assert [m for _, m in calls[0::3]] == [1, 6, 8, 18]
     assert sm_kernel.sonic_matvec_kernel.launches == 2
     assert sm_kernel.sonic_matmul_kernel.launches == 2
     assert bs_kernel.block_sparse_matmul_kernel.launches == 4
     assert cm_kernel.clustered_matmul_kernel.launches == 4
+    sm_ops.sonic_matmul(torch.empty((1, K), device="meta"), sw)  # fp32 x: the tiled kernel
+    assert calls[12] == ("sonic_matmul", 1) and sm_kernel.sonic_matmul_kernel.launches == 3
     sm_ops.sonic_matmul(torch.zeros(3, K), sm_ops.SonicWeight(
         torch.zeros((3, 4, 32, 64), dtype=torch.int8), torch.zeros(16),
         torch.zeros((3, 4), dtype=torch.int32), 8))  # CPU: plain, not counted
-    assert len(calls) == 12 and sm_kernel.sonic_matvec_kernel.launches == 2
+    assert len(calls) == 13 and sm_kernel.sonic_matvec_kernel.launches == 2
 
 
 def test_new_kernels_raise_off_the_cpu_without_a_card():

@@ -128,10 +128,18 @@ def test_flash_attention_chunks_and_padding_match_jax():
 
 
 def test_attention_modes_not_ported_raise(setup):
+    """Chunk-resume, the verify window, paged and int8 KV are ported
+    (``tests/test_torch_modes.py``); M-RoPE positions are not, and a decode
+    step or a paged forward without a position has none to write at."""
     _, _, tcfg, tparams = setup
     cache = tT.init_cache(tcfg, 1, 16, "cpu", dtype=torch.float32)
     tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):  # chunk-resume prefill
-        tT.forward(tparams, tcfg, tokens=tok, cache=cache, cache_pos=torch.tensor([2]))
+    with pytest.raises(NotImplementedError):  # M-RoPE positions (B, 3, S)
+        tT.forward(tparams, tcfg, tokens=tok, positions=torch.zeros((1, 3, 4), dtype=torch.long),
+                   cache=cache)
     with pytest.raises(ValueError):  # a one-token step without a position
         tT.forward(tparams, tcfg, tokens=tok[:, :1], cache=cache)
+    pool = tT.init_paged_cache(tcfg, 4, 4, "cpu", dtype=torch.float32)
+    with pytest.raises(ValueError):  # a paged prefill without a position
+        tT.forward(tparams, tcfg, tokens=tok, cache=pool,
+                   block_table=torch.zeros((1, 4), dtype=torch.int32))
