@@ -137,6 +137,18 @@ Phases, in order; any failure exits non-zero before the last line:
      ``cnn_workload``, the five-variant ablation and ``evaluate_all`` with
      SONIC's FPS/W ratio against each baseline.  Those FPS, W and ratios are
      outputs of the analytical photonic model, not card measurements.
+ 13. continuous serving (``phase_continuous``, run after the serving
+     modes): ``ContinuousScheduler`` over the served weights at max_len 128,
+     its slot programs replayed from CUDA graphs.  8 ragged requests whose
+     tokens must equal ``generate`` at B = 1 in ten configurations (scan /
+     while × dense / paged, chunked admission, n_slots 8, int8 KV,
+     overcommit 2.0 with recompute and with swap, where preemption must
+     happen), every int8 launch on the tensor cores, each slot program
+     captured once per shape and none run eagerly; then 32 requests at 100
+     requests/s through ``launch.serve.run_poisson``, scan / while × dense /
+     paged: tok/s, p50 / p95 latency and TTFT (median, min, max of 3 runs
+     after one that captures), segments, admit ms per round, captures, and
+     the card's busy time (torch.profiler) against the median wall.
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -196,7 +208,8 @@ from repro_torch.models import cnn, layers, transformer  # noqa: E402
 from repro_torch.photonic.accelerator import SonicAccelerator, SonicHWConfig  # noqa: E402
 from repro_torch.photonic.baselines import evaluate_all  # noqa: E402
 from repro_torch.photonic.mapper import cnn_workload, lm_workload  # noqa: E402
-from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import SLOT_PROGRAMS, ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.utils.tree import tree_param_count  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -364,6 +377,11 @@ def _counts(counts) -> dict:
     return {name: n for name, (n, _) in counts.items() if n}
 
 
+def _captures(eng) -> dict:
+    """The engine's captures, by program, those > 0."""
+    return {k: v for k, v in eng.trace_counts.items() if v}
+
+
 def phase_main_path(card: str):
     """The served model through ``launch.serve`` on the default loop,
     "scan": the prefill and each decode step replayed from CUDA graphs,
@@ -389,14 +407,14 @@ def phase_main_path(card: str):
     if any(routes[name] != {build.TENSOR_CORES: launches[name], build.CUDA_CORES: 0}
            for name in KERNELS):
         raise AssertionError(f"main path: routes {routes}, want all on the tensor cores")
-    if eng.trace_counts != {"prefill": 1, "decode": 1}:
+    if _captures(eng) != {"prefill": 1, "decode": 1}:
         raise AssertionError(f"main path: captures {eng.trace_counts}, want one of each")
     if tokens.shape != (args.batch, args.new_tokens) or not (
             (tokens >= 0) & (tokens < eng.cfg.vocab_size)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
     if not torch.equal(serve.run_batch(eng, args), tokens):
         raise AssertionError("a second run gave other tokens")
-    if eng.trace_counts != {"prefill": 1, "decode": 1}:
+    if _captures(eng) != {"prefill": 1, "decode": 1}:
         raise AssertionError(f"a second run captured again: {eng.trace_counts}")
     prompts = serve.make_prompts(args, eng.cfg.vocab_size)
     eager = ServeEngine(eng.arch, eng.params, dataclasses.replace(eng.sc, loop="python"),
@@ -406,7 +424,7 @@ def phase_main_path(card: str):
     scan, python = _loop_timing(eng, prompts, args.new_tokens), _loop_timing(
         eager, prompts, args.new_tokens)
     emit({"phase": "main_path", "card": card, "loop": "scan", "launches": launches,
-          "routes": routes, "captures": eng.trace_counts,
+          "routes": routes, "captures": _captures(eng),
           "capture_seconds": eng.capture_seconds,
           "graphed_launches": {
               "prefill": _counts(eng.graph_launches()["prefill"][(args.batch, args.prompt_len)]),
@@ -954,6 +972,185 @@ def phase_serving_modes(eng, eager, card: str) -> None:
     emit(out)
 
 
+CONT_MAX_LEN, CONT_BLOCK_LEN = 128, 16
+CONT_SMALL_POOL = 10  # blocks of 16 for 4 slots: below the workload's demand
+
+
+def _int8_routes() -> dict:
+    return {name: dict(kn["wrapper"].routes) for name, kn in KERNELS.items()}
+
+
+def _cont_engine(eng, layout="dense", quant=False, loop="scan"):
+    sc = dataclasses.replace(eng.sc, max_len=CONT_MAX_LEN, kv_layout=layout,
+                             block_len=CONT_BLOCK_LEN, loop=loop)
+    return ServeEngine(eng.arch, eng.params, sc, device=eng.device, cache_quant_int8=quant)
+
+
+def _cont_args(n_requests: int, rate: float, segment_len: int):
+    return serve.parse_args(MAIN_ARGS + [
+        "--workload", "poisson", "--n-requests", str(n_requests), "--rate", str(rate),
+        "--segment-len", str(segment_len), "--seed", "0"])
+
+
+def _slot_captures_once(eng) -> dict:
+    """Every slot program captured once per shape: the engine's captures
+    by program equal its captured (state, shape) pairs, and nothing ran
+    eagerly on the card."""
+    graphs: dict[str, int] = {}
+    for (_, _, name, *_), _l in eng.slot_graph_launches().items():
+        graphs[name] = graphs.get(name, 0) + 1
+    caps = {k: eng.trace_counts[k] for k in SLOT_PROGRAMS if eng.trace_counts[k]}
+    if caps != graphs or eng.slot_eager_runs:
+        raise AssertionError(f"continuous: captures {caps} against graphs {graphs}, "
+                             f"{eng.slot_eager_runs} eager runs")
+    return caps
+
+
+def _device_busy(prof) -> tuple[float, int]:
+    """The card's busy ms and kernel count in a profiled window, summed
+    over the raw device events (``key_averages`` takes minutes over the ~1
+    M events of a timed run)."""
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in evs) / 1e6, len(evs)
+
+
+def phase_continuous(eng, card: str) -> None:
+    """Continuous serving (``serve.scheduler.ContinuousScheduler``) at full
+    width, the slot programs replayed from CUDA graphs.
+
+    Bit for bit: 8 requests from ``launch.serve._poisson_draws`` (seed 0,
+    prompts 4–64, 4–32 new tokens), all submitted before the first segment,
+    n_slots 4, max_len 128, block_len 16; each request's tokens must equal
+    its own ``generate`` at B = 1, in every run: segment_len 8 scan and
+    while, dense and paged; chunked admission (chunk 32, 4 buckets) dense
+    and paged; n_slots 8 (the segment's rows on block_sparse_matmul_int8);
+    int8 KV against its own engine's ``generate``; paged with overcommit
+    2.0 and a pool of ``CONT_SMALL_POOL`` blocks, recompute and swap, where
+    preemption must happen.  Every launch of the int8 pair (bf16 x) on the
+    tensor cores; every slot program captured once per shape, none run
+    eagerly.
+
+    Timed: 32 requests at 100 requests/s (prompts 4–64, 4–32 new tokens),
+    segment_len 16, through ``launch.serve.run_poisson`` (arrivals in real
+    time), scan and while × dense and paged: a first run captures, then 3
+    timed runs (median, min, max of tok/s, p50/p95 latency and TTFT,
+    segments, admit ms per round; no capture allowed), then one run under
+    torch.profiler for the card's busy time against its wall time."""
+    t_phase = time.perf_counter()
+    draws_args = _cont_args(8, 100.0, 8)
+    arrivals, p_lens, n_news, prompts = serve._poisson_draws(draws_args, eng.cfg.vocab_size)
+    engines = {"dense": _cont_engine(eng), "paged": _cont_engine(eng, "paged"),
+               "int8_kv": _cont_engine(eng, quant=True)}
+
+    def oracle(e):
+        return [e.generate(torch.from_numpy(p)[None].to(e.device), int(n))[0].tolist()
+                for p, n in zip(prompts, n_news)]
+
+    want = {"bf16": oracle(engines["dense"]), "int8_kv": oracle(engines["int8_kv"])}
+    runs = [("dense_scan", "dense", dict(segment_mode="scan")),
+            ("dense_while", "dense", dict(segment_mode="while")),
+            ("paged_scan", "paged", dict(segment_mode="scan")),
+            ("paged_while", "paged", dict(segment_mode="while")),
+            ("dense_chunked", "dense", dict(prefill_chunk=32, prefill_buckets=4)),
+            ("paged_chunked", "paged", dict(prefill_chunk=32, prefill_buckets=4)),
+            ("dense_slots8", "dense", dict(n_slots=8)),
+            ("int8_kv", "int8_kv", {}),
+            ("paged_recompute", "paged", dict(n_blocks=CONT_SMALL_POOL, overcommit=2.0,
+                                              preempt_mode="recompute")),
+            ("paged_swap", "paged", dict(n_blocks=CONT_SMALL_POOL, overcommit=2.0,
+                                         preempt_mode="swap"))]
+    out = {"phase": "continuous", "card": card, "requests": len(prompts),
+           "prompt_lens": [int(x) for x in p_lens], "new_tokens": [int(x) for x in n_news],
+           "max_len": CONT_MAX_LEN, "block_len": CONT_BLOCK_LEN, "bit_for_bit": {}}
+    out["oracle_seconds"] = time.perf_counter() - t_phase
+    for name, key, kw in runs:
+        t_run = time.perf_counter()
+        e = engines[key]
+        kw = {"n_slots": 4, "segment_len": 8, **kw}
+        captures0, seconds0 = dict(e.trace_counts), sum(e.capture_seconds.values())
+        routes0 = _int8_routes()
+        sched = ContinuousScheduler(e, **kw)
+        handles = [sched.submit(p, int(n)) for p, n in zip(prompts, n_news)]
+        sched.run()
+        torch.cuda.synchronize()
+        routes = {k: {r: v - routes0[k].get(r, 0) for r, v in rv.items()}
+                  for k, rv in _int8_routes().items()}
+        ref = want["int8_kv" if key == "int8_kv" else "bf16"]
+        differing = sum(h.tokens != w for h, w in zip(handles, ref))
+        line = {"differing_requests": differing, "segments": sched.stats["segments"],
+                "captures": {k: v - captures0[k] for k, v in e.trace_counts.items()
+                             if v != captures0[k]},
+                "capture_seconds": sum(e.capture_seconds.values()) - seconds0,
+                "routes": routes, "preemptions": sched.stats["preemptions"],
+                "swap_ins": sched.stats["swap_ins"],
+                "replayed_tokens": sched.stats["replayed_tokens"],
+                "seconds": time.perf_counter() - t_run}
+        out["bit_for_bit"][name] = line
+        if differing or not all(h.done for h in handles):
+            raise AssertionError(f"continuous {name}: {differing} requests differ from "
+                                 f"generate at B = 1: {line}")
+        if any(rv.get(build.CUDA_CORES, 0) for rv in routes.values()) or not any(
+                rv.get(build.TENSOR_CORES, 0) for rv in routes.values()):
+            raise AssertionError(f"continuous {name}: routes {routes}, want all bf16 "
+                                 f"launches on the tensor cores")
+        if "overcommit" in kw and not sched.stats["preemptions"]:
+            raise AssertionError(f"continuous {name}: no preemption")
+        if kw.get("preempt_mode") == "swap" and not sched.stats["swap_ins"]:
+            raise AssertionError(f"continuous {name}: no swap-in")
+    out["graphs"] = {key: {"captures": _slot_captures_once(e),
+                           "capture_seconds": {k: e.capture_seconds[k] for k in SLOT_PROGRAMS
+                                               if e.capture_seconds[k]},
+                           "pool_reserved_bytes": e.slot_graph_bytes}
+                     for key, e in engines.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    del engines, want
+
+    args = _cont_args(32, 100.0, 16)
+    draws = serve._poisson_draws(args, eng.cfg.vocab_size)
+    for layout in ("dense", "paged"):
+        e = _cont_engine(eng, layout)
+        for mode in ("scan", "while"):
+            t_config = time.perf_counter()
+            args.segment_mode, args.kv_layout = mode, layout
+            useful, total, sched, _ = serve.run_poisson(e, args, draws, verbose=False)
+            first_tok_s = useful / total
+            captured = dict(e.trace_counts)
+            timed = []
+            for _ in range(3):
+                useful, total, sched, handles = serve.run_poisson(e, args, draws, verbose=False)
+                timed.append(serve.report_poisson(e, useful, total, sched, handles))
+                if sched.stats["admitted"] != sched.stats["retired"] or sched.has_work():
+                    raise AssertionError(f"continuous timed {layout} {mode}: not drained")
+            if e.trace_counts != captured:
+                raise AssertionError(f"continuous timed {layout} {mode}: a repeat captured")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_run = serve.run_poisson(e, args, draws, verbose=False)
+            busy_ms, launches = _device_busy(prof)
+            wall_ms = statistics.median(1e3 * t["seconds"] for t in timed)
+            st = sched.stats
+            emit({"phase": "continuous_timed", "card": card, "layout": layout,
+                  "segment_mode": mode, "requests": args.n_requests, "rate": args.rate,
+                  "segment_len": args.segment_len, "max_len": CONT_MAX_LEN,
+                  "tokens": timed[-1]["tokens"],
+                  "admitted_retired": [st["admitted"], st["retired"]],
+                  "segments": st["segments"], "steps_total": st["steps_total"],
+                  "admit_ms_per_round": 1e3 * st["admit_time_s"] / max(st["admit_rounds"], 1),
+                  "admit_rounds": st["admit_rounds"],
+                  "first_run_tok_s": first_tok_s,
+                  "captures_first_run": _slot_captures_once(e),
+                  "capture_seconds": sum(e.capture_seconds[k] for k in SLOT_PROGRAMS),
+                  "captures_timed_runs": 0,
+                  "spread_of_3": {k: _spread([t[k] for t in timed])
+                                  for k in timed[0] if k.endswith(("_s", "_ms"))},
+                  "wall_ms_median": wall_ms, "profiled_wall_ms": 1e3 * prof_run[1],
+                  "device_busy_ms": busy_ms or None,
+                  "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+                  "device_kernel_launches": launches,
+                  "seconds": time.perf_counter() - t_config})
+
+
 def _reset_routes() -> None:
     for name in ROUTED:
         LAYER_KERNELS[name]["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
@@ -1404,6 +1601,7 @@ def main() -> None:
     layer_errs = phase_layer_kernels(dev)
     phase_row_bits(dev)
     phase_serving_modes(eng, eager, card)
+    phase_continuous(eng, card)
     converted, layer_launches = phase_layer_path(eng, card)
     kernels += phase_layer_timing(converted, layer_launches, layer_errs)
     del converted

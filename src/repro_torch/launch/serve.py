@@ -1,32 +1,53 @@
-"""Serving launcher: one fixed batch through ``ServeEngine.generate``.
+"""Serving launcher, two workloads as in the reference's:
 
-Weights are random, made from ``--seed`` on the device; prompts from
-``--seed + 1``.  Prints tok/s and the first two token rows.  ``--loop``
-picks the decode loop (``scan``, the default: one CUDA graph per decode
-step, replayed; ``while``: the same with an eos early exit; ``python``: the
-eager loop) and ``--cache-quant-int8`` the int8 KV cache, as in the
-reference's launcher.
+  batch    (default) one fixed batch through ``ServeEngine.generate``;
+           prints tok/s and the first two token rows.
+  poisson  continuous batching: requests arrive on a simulated Poisson
+           process (seeded numpy draws, ``_poisson_draws``) with ragged
+           prompt and output lengths and stream through
+           ``serve.scheduler.ContinuousScheduler``; per-segment progress
+           and request 0's tokens print live, then tok/s and p50/p95
+           latency and TTFT.
+
+Weights are random, made from ``--seed`` on the device; batch prompts from
+``--seed + 1``.  ``--loop`` picks the decode loop (``scan``, the default:
+one CUDA graph per decode step, replayed; ``while``: the same with an eos
+early exit; ``python``: the eager loop; on the poisson workload "python"
+runs the slot programs eagerly) and ``--cache-quant-int8`` the int8 KV
+cache, as in the reference's launcher.  The reference's ``--spec-*``,
+``--trace`` and ``--autotune`` are not ported yet.
 
 Usage, on the card (the CUDA kernels build into ``build/`` at first use,
 before the timed run):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --weight-quant int8 --weight-quant-sparsity 0.5 \
         --batch 4 --prompt-len 64 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --weight-quant int8 --weight-quant-sparsity 0.5 --workload poisson \
+        --n-requests 32 --rate 100 --prompt-len 64 --new-tokens 32
 On the CPU, at test size (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --weight-quant int8 --weight-quant-sparsity 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --weight-quant int8 --weight-quant-sparsity 0.5 --workload poisson \
+        --n-requests 10 --rate 200 --new-tokens 24 --kv-layout paged
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ALL_ARCH_IDS
 from repro_torch.kernels import build
 from repro_torch.models.registry import get_arch
+from repro_torch.serve.chaos import ChaosConfig
 from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.request import SubmitRequest
+from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("launch.serve")
@@ -57,6 +78,67 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "position and head")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
+    ap.add_argument("--workload", default="batch", choices=("batch", "poisson"),
+                    help="batch: one static batch; poisson: simulated arrivals "
+                         "through the slot scheduler")
+    # poisson-workload knobs
+    ap.add_argument("--n-requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="mean arrival rate, requests/s")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--segment-len", type=int, default=16)
+    ap.add_argument("--segment-mode", default="while", choices=("scan", "while"))
+    ap.add_argument("--kv-layout", default="dense", choices=("dense", "paged"),
+                    help="slot-cache layout: dense max_len rows (default) or "
+                         "a paged block pool + block table")
+    ap.add_argument("--block-len", type=int, default=16,
+                    help="paged layout: tokens per KV block (the launcher "
+                         "rounds max_len up to whole blocks)")
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="paged layout: allocatable pool blocks (default: "
+                         "dense-equivalent n_slots x max_len/block_len)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="batched/chunked admission: split prompts into "
+                         "chunks of this many tokens (a power of two; the "
+                         "launcher rounds max_len up to whole chunks) and "
+                         "prefill same-bucket chunks for several slots in "
+                         "one launch; 0 = per-request admission")
+    ap.add_argument("--prefill-buckets", type=int, default=4,
+                    help="chunked admission: final chunks pad up to this "
+                         "many power-of-two bucket lengths")
+    ap.add_argument("--prefill-token-budget", type=int, default=0,
+                    help="Sarathi-style admit rounds: advance up to this "
+                         "many real prefill tokens per round (requires "
+                         "--prefill-chunk; 0 = one chunk per prefilling "
+                         "slot per round)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="paged admission: admit while committed full "
+                         "budgets fit overcommit x pool capacity (>1.0 "
+                         "enables mid-flight preemption when the pool runs "
+                         "dry)")
+    ap.add_argument("--preempt-mode", default="recompute",
+                    choices=("recompute", "swap"),
+                    help="how evicted requests readmit: re-prefill the "
+                         "prompt + replay emitted tokens (default), or host "
+                         "KV swap-out/swap-in")
+    ap.add_argument("--ttft-deadline", type=float, default=None,
+                    help="per-request first-token deadline in seconds "
+                         "(missed -> status 'expired')")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request total deadline in seconds")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="fault-injection RNG seed (with the --chaos-* "
+                         "probabilities below)")
+    ap.add_argument("--chaos-exhaust-prob", type=float, default=0.0,
+                    help="fault injection: per-segment probability of "
+                         "forcing pool exhaustion (paged only)")
+    ap.add_argument("--chaos-cancel-prob", type=float, default=0.0,
+                    help="fault injection: per-segment probability of "
+                         "cancelling a random live request")
+    ap.add_argument("--chaos-slot-fail-prob", type=float, default=0.0,
+                    help="fault injection: per-segment probability of "
+                         "failing a random occupied slot (its request "
+                         "retires to the queue and readmits)")
     args = ap.parse_args(argv)
     if args.batch < 1 or args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--batch, --prompt-len and --new-tokens must be >= 1")
@@ -64,6 +146,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         ap.error("--weight-quant-sparsity requires --weight-quant int8")
     if not 0.0 <= args.weight_quant_sparsity < 1.0:
         ap.error("--weight-quant-sparsity must be in [0, 1)")
+    poisson_only = {"--kv-layout paged": args.kv_layout == "paged",
+                    "--prefill-chunk": bool(args.prefill_chunk),
+                    "--chaos-*": bool(args.chaos_exhaust_prob or args.chaos_cancel_prob
+                                      or args.chaos_slot_fail_prob)}
+    for flag, given in poisson_only.items():
+        if given and args.workload != "poisson":
+            ap.error(f"{flag} only applies to the slot scheduler: pass --workload poisson")
+    if args.n_blocks is not None and args.kv_layout != "paged":
+        ap.error("--n-blocks requires --kv-layout paged")
+    if args.prefill_token_budget and not args.prefill_chunk:
+        ap.error("--prefill-token-budget requires --prefill-chunk")
+    if args.overcommit < 1.0:
+        ap.error("--overcommit must be >= 1.0")
+    if args.overcommit != 1.0 and args.kv_layout != "paged":
+        ap.error("--overcommit requires --kv-layout paged (dense slots have no "
+                 "block pool to overcommit)")
+    if args.preempt_mode == "swap" and args.kv_layout != "paged":
+        ap.error("--preempt-mode swap requires --kv-layout paged")
     return args
 
 
@@ -80,11 +180,21 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.inference_mode():
         params = arch.init_params(gen, device)
+    max_len = args.prompt_len + args.new_tokens + 1
+    if args.workload == "poisson":
+        # round up so max_len is whole blocks (paged) and whole prefill
+        # chunks (chunked admission), both at once via the lcm
+        quantum = args.block_len if args.kv_layout == "paged" else 1
+        if args.prefill_chunk:
+            quantum = math.lcm(quantum, args.prefill_chunk)
+        max_len += (-max_len) % quantum
     sc = ServeConfig(
-        max_len=args.prompt_len + args.new_tokens + 1,
+        max_len=max_len,
         temperature=args.temperature,
         eos_token=args.eos_token,
         loop=args.loop,
+        kv_layout=args.kv_layout,
+        block_len=args.block_len,
         weight_quant=args.weight_quant,
         weight_quant_sparsity=args.weight_quant_sparsity,
     )
@@ -113,9 +223,145 @@ def run_batch(eng: ServeEngine, args: argparse.Namespace) -> torch.Tensor:
     return out
 
 
+def _poisson_draws(args: argparse.Namespace, vocab: int):
+    """The poisson workload's draws, the reference's numpy draws from
+    ``--seed``: (arrival times s, prompt lengths, new-token budgets,
+    prompts)."""
+    if args.rate <= 0:
+        raise SystemExit("--rate must be > 0")
+    if args.n_requests < 1:
+        raise SystemExit("--n-requests must be >= 1")
+    rng = np.random.RandomState(args.seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.n_requests))
+    min_plen = min(4, args.prompt_len)  # ragged draw floor, prompt_len cap
+    p_lens = rng.randint(min_plen, args.prompt_len + 1, args.n_requests)
+    n_news = rng.randint(max(args.new_tokens // 8, 1), args.new_tokens + 1,
+                         args.n_requests)
+    prompts = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in p_lens]
+    return arrivals, p_lens, n_news, prompts
+
+
+def run_poisson(eng: ServeEngine, args: argparse.Namespace, draws=None, verbose: bool = True):
+    """Serve the poisson workload in real time: each request is submitted
+    once its arrival time has passed, segments run while there is work.
+    ``verbose`` streams request 0's tokens and logs each arrival and
+    segment.  Returns (useful tokens, seconds, scheduler, handles)."""
+    say = log.info if verbose else log.debug
+    arrivals, p_lens, n_news, prompts = (
+        draws if draws is not None else _poisson_draws(args, eng.cfg.vocab_size))
+
+    def stream0(req, tok):  # live token stream for the first request
+        print(f"  [r0 stream] +{tok}", flush=True)
+
+    chaos = None
+    if args.chaos_exhaust_prob or args.chaos_cancel_prob or args.chaos_slot_fail_prob:
+        chaos = ChaosConfig(seed=args.chaos_seed, exhaust_prob=args.chaos_exhaust_prob,
+                            cancel_prob=args.chaos_cancel_prob,
+                            slot_fail_prob=args.chaos_slot_fail_prob)
+    sched = ContinuousScheduler(eng, n_slots=args.slots, segment_len=args.segment_len,
+                                segment_mode=args.segment_mode, seed=args.seed,
+                                n_blocks=args.n_blocks, prefill_chunk=args.prefill_chunk,
+                                prefill_buckets=args.prefill_buckets,
+                                prefill_token_budget=args.prefill_token_budget,
+                                overcommit=args.overcommit, preempt_mode=args.preempt_mode,
+                                chaos=chaos)
+    handles = []
+    t0 = time.perf_counter()
+    next_arrival = 0
+    while next_arrival < args.n_requests or sched.has_work():
+        now = time.perf_counter() - t0
+        while next_arrival < args.n_requests and arrivals[next_arrival] <= now:
+            i = next_arrival
+            handles.append(sched.submit(SubmitRequest(
+                prompts[i], int(n_news[i]),
+                on_token=stream0 if i == 0 and verbose else None,
+                ttft_deadline_s=args.ttft_deadline,
+                deadline_s=args.deadline,
+            )))
+            say("arrive  r%-3d t=%.3fs prompt=%d max_new=%d",
+                      i, now, p_lens[i], n_news[i])
+            next_arrival += 1
+        if sched.has_work():
+            running = sched.run_segment()
+            st = sched.stats
+            say("segment %-3d running=%d queued=%d admitted=%d retired=%d "
+                      "steps=%d", st["segments"], running, len(sched.queue),
+                      st["admitted"], st["retired"], st["steps_total"])
+        elif next_arrival < args.n_requests:
+            time.sleep(max(arrivals[next_arrival] - (time.perf_counter() - t0), 0.0))
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    total = time.perf_counter() - t0
+    useful = sum(len(h.tokens) for h in handles)
+    return useful, total, sched, handles
+
+
+def report_poisson(eng: ServeEngine, useful: int, total: float, sched: ContinuousScheduler,
+                   handles: list) -> dict:
+    """Log the run's summary, the reference's lines; returns its numbers."""
+    # cancelled/expired requests may never emit: percentile what finished
+    lats = np.asarray([h.latency for h in handles if h.latency is not None])
+    ttfts = np.asarray([h.ttft for h in handles if h.ttft is not None])
+    st = sched.stats
+    where = (torch.cuda.get_device_name(eng.device) if eng.device.type == "cuda"
+             else "cpu")
+    log.info("served %d requests / %d tokens in %.2fs — %.1f tok/s on %s",
+             len(handles), useful, total, useful / total, where)
+    out = {"requests": len(handles), "tokens": useful, "seconds": total,
+           "tok_s": useful / total}
+    if len(lats) and len(ttfts):
+        out.update({f"{name}_p{q}_ms": 1e3 * float(np.percentile(v, q))
+                    for name, v in (("latency", lats), ("ttft", ttfts)) for q in (50, 95)})
+        log.info("latency p50=%.3fs p95=%.3fs   ttft p50=%.3fs p95=%.3fs",
+                 np.percentile(lats, 50), np.percentile(lats, 95),
+                 np.percentile(ttfts, 50), np.percentile(ttfts, 95))
+    log.info("segments=%d slot-steps live=%d masked=%d admissions/slot=%s",
+             st["segments"], st["slot_steps_live"], st["slot_steps_masked"],
+             st["admissions_per_slot"])
+    log.info("admitted=%d retired=%d", st["admitted"], st["retired"])
+    if st["admit_rounds"]:
+        log.info("admit rounds=%d (%.2f ms/round)", st["admit_rounds"],
+                 1e3 * st["admit_time_s"] / st["admit_rounds"])
+    captures = {k: v for k, v in eng.trace_counts.items() if v}
+    log.info("captures %s in %.2fs (slot graphs reserved %.1f MiB), slot programs run "
+             "eagerly on the card: %d", captures, sum(eng.capture_seconds.values()),
+             eng.slot_graph_bytes / 2**20, eng.slot_eager_runs)
+    if sched.chunked:
+        hist = " ".join(f"{b}x{c}" for b, c in sorted(st["prefill_batch_hist"].items()))
+        log.info("chunked prefill: chunk=%d buckets=%s launches=%d chunks=%d "
+                 "batch-size histogram [%s] captures=%d", sched.prefill_chunk,
+                 sched.buckets, st["prefill_launches"], st["chunks_prefilled"], hist,
+                 eng.trace_counts["prefill_slots"] + eng.trace_counts["prefill_slots_paged"])
+    elif st["chunked_skip_reason"]:
+        log.info("chunked prefill disabled: %s", st["chunked_skip_reason"])
+    if sched.paged:
+        log.info("paged KV: peak blocks %d/%d (block_len=%d, overcommit=%.2f), blocks "
+                 "grown on demand: %d, admissions deferred on full pool: %d",
+                 st["blocks_in_use_peak"], sched.n_blocks, sched.block_len,
+                 sched.overcommit, st["blocks_grown"], st["admit_deferred"])
+    if st["preemptions"]:
+        pen = (st["readmit_penalty_s"] / st["readmit_penalty_n"]
+               if st["readmit_penalty_n"] else 0.0)
+        log.info("preemption (%s): %d evictions, %d readmits (%d swap-outs, %d swap-ins, "
+                 "%d replayed tokens), mean readmit penalty %.1f ms", sched.preempt_mode,
+                 st["preemptions"], st["readmits"], st["swap_outs"], st["swap_ins"],
+                 st["replayed_tokens"], 1e3 * pen)
+    if st["cancelled"] or st["expired"]:
+        log.info("terminal: %d cancelled (%d blocks reclaimed), %d expired",
+                 st["cancelled"], st["blocks_reclaimed_cancel"], st["expired"])
+    if sched.chaos is not None and sched.chaos.enabled:
+        log.info("chaos: %d forced exhaustions, %d injected cancels, %d slot failures",
+                 st["chaos_exhausts"], st["chaos_cancels"], st["chaos_slot_failures"])
+    return out
+
+
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
-    run_batch(build_engine(args), args)
+    eng = build_engine(args)
+    if args.workload == "poisson":
+        report_poisson(eng, *run_poisson(eng, args))
+    else:
+        run_batch(eng, args)
 
 
 if __name__ == "__main__":

@@ -45,6 +45,40 @@ Semantics (as in the reference): the first token is sampled from the
 prefill logits and is never eos-pinned; every subsequent token is
 eos-checked, and once a sequence has emitted ``eos_token`` all its later
 tokens are pinned to ``eos_token``.
+
+Slot programs (continuous batching, ``serve.scheduler``): the eight
+programs of the reference that do not speculate, over a ``SlotState`` (the
+slot cache or paged pool, ``tok`` / ``pos`` / ``done``, and the host policy
+uploaded before each segment: ``active``, ``limit``, ``stop_on_free``, the
+block table), every one updated in place at fixed addresses:
+
+  prefill_slot[_paged]           one request (1, P) into one slot; a graph
+                                 per prompt length P
+  prefill_slots[_paged]          one chunk for up to W slots (W, Cb); a
+                                 graph per (W, Cb)
+  slot_segment[_while][_paged]   n_steps masked decode steps over every
+                                 slot (``slot_step``); a graph per n_steps
+
+Every value the reference traces (slot ids, starts, last-token offsets,
+block-table rows, ``active`` / ``limit`` / ``stop_on_free``) is a device
+buffer the host fills before a replay, from pinned memory, so nothing a
+graph bakes in depends on the call.  The while segment has no early exit
+on the device: each of its steps is predicated on a stop flag computed
+there (every active slot done, or a slot just finished while
+``stop_on_free`` is set); once it is set a step emits −1 and holds tok,
+pos and done, which is the token block and state of the reference's loop
+stopping at that step.  Such a step still rewrites each slot's k/v at its
+frozen position, with the values the next real step writes there.  The
+scheduler runs it for only as many steps as the slots' budgets allow
+(``ContinuousScheduler._while_steps``), so only an eos leaves predicated
+steps behind.  On the
+card each program is captured once per shape into one memory pool shared
+by all the engine's slot graphs (the first call at a shape warms up on a
+scratch copy of the state, then captures, then replays) and replayed
+after; with ``loop="python"`` and on the CPU they run eagerly.  A slot
+state belongs to the engine, one per (n_slots, n_blocks): a second
+scheduler of the same geometry takes it over (with its graphs) and the
+first may not run again.
 """
 from __future__ import annotations
 
@@ -52,6 +86,7 @@ import dataclasses
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.sonic_layers import quantize_serve_params
@@ -64,6 +99,14 @@ LOOPS = ("scan", "while", "python")
 KV_LAYOUTS = ("dense", "paged")
 # "while": decode steps replayed between two host reads of ``done``
 WHILE_CHECK_STEPS = 8
+# the reference's slot programs; the four ``slot_spec_*`` (speculative
+# decoding) are not ported yet and stay at 0 in the counters
+SLOT_PROGRAMS = ("prefill_slot", "prefill_slots", "slot_segment",
+                 "slot_segment_while", "prefill_slot_paged",
+                 "prefill_slots_paged", "slot_segment_paged",
+                 "slot_segment_while_paged", "slot_spec_segment",
+                 "slot_spec_segment_while", "slot_spec_segment_paged",
+                 "slot_spec_segment_while_paged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +129,9 @@ class ServeConfig:
     weight_quant: str = "none"  # "none" | "int8"
     weight_quant_sparsity: float = 0.0
     weight_quant_block: tuple[int, int] | None = None
+    # run the scheduler's allocator / table / commitment invariant checks
+    # at the end of every segment (host dicts only, never the device)
+    debug_invariants: bool = False
 
 
 def _to_device(tree, device: torch.device):
@@ -116,6 +162,74 @@ class _Graph:
     launches: counters.Counts  # what one replay launches
 
 
+@dataclasses.dataclass
+class _Program:
+    """One slot program at one shape: its input buffer (what the host fills
+    before a run), its output (the graph's, or the last eager run's) and,
+    on the card, its graph."""
+
+    inp: torch.Tensor
+    out: torch.Tensor | None = None
+    graph: _Graph | None = None
+
+
+class SlotState:
+    """The continuous scheduler's device state, updated in place by every
+    slot program: the slot cache (dense: one ``max_len`` row per slot) or
+    paged pool (``n_slots`` scratch blocks, then ``n_blocks``), ``tok`` /
+    ``pos`` (n_slots,) int64 and ``done`` (n_slots,) bool, and the segment
+    policy buffer ``policy`` = [active, limit, stop_on_free, block table],
+    int64, uploaded before each segment.  ``generator`` draws temperature
+    samples (None when greedy).  ``programs`` holds the captured graphs."""
+
+    def __init__(self, cache: dict, n_slots: int, max_blocks: int, device,
+                 generator: torch.Generator | None):
+        self.cache, self.n_slots, self.max_blocks = cache, n_slots, max_blocks
+        self.tok = torch.zeros((n_slots,), dtype=torch.long, device=device)
+        self.pos = torch.zeros((n_slots,), dtype=torch.long, device=device)
+        self.done = torch.zeros((n_slots,), dtype=torch.bool, device=device)
+        self.policy = torch.zeros((2 * n_slots + 1 + n_slots * max_blocks,),
+                                  dtype=torch.long, device=device)
+        self.generator = generator
+        self.programs: dict[tuple, _Program] = {}
+        self.owner: object | None = None
+
+    @property
+    def active(self) -> torch.Tensor:
+        return self.policy[:self.n_slots].bool()
+
+    @property
+    def limit(self) -> torch.Tensor:
+        return self.policy[self.n_slots:2 * self.n_slots]
+
+    @property
+    def stop_on_free(self) -> torch.Tensor:
+        return self.policy[2 * self.n_slots].bool()
+
+    @property
+    def block_table(self) -> torch.Tensor:
+        return self.policy[2 * self.n_slots + 1:].view(self.n_slots, self.max_blocks)
+
+    def reset(self) -> None:
+        """What a new scheduler starts from: tok, pos, done and the policy
+        zeroed.  The cache keeps what it holds: a prefill overwrites a
+        slot's row or the blocks it maps before anything reads them, and
+        positions past a slot's cursor are masked."""
+        for t in (self.tok, self.pos, self.done, self.policy):
+            t.zero_()
+
+    def scratch(self, generator: torch.Generator | None) -> "SlotState":
+        """A copy to warm a program up on before its capture, drawing from
+        ``generator`` (so the warm-up leaves this state's untouched)."""
+        other = SlotState.__new__(SlotState)
+        other.__dict__.update(self.__dict__)
+        other.generator = generator
+        other.cache = {k: v.clone() for k, v in self.cache.items()}
+        for name in ("tok", "pos", "done", "policy"):
+            setattr(other, name, getattr(self, name).clone())
+        return other
+
+
 class ServeEngine:
     def __init__(self, arch: Arch, params: dict, sc: ServeConfig, device="cuda", *,
                  cache_quant_int8: bool = False):
@@ -141,10 +255,21 @@ class ServeEngine:
         self.arch, self.params, self.sc, self.cfg = arch, params, sc, arch.cfg
         self.cache_quant_int8 = cache_quant_int8
         self.graphs = sc.loop != "python" and self.device.type == "cuda"
-        self.trace_counts: dict[str, int] = {"prefill": 0, "decode": 0}  # captures
-        self.capture_seconds: dict[str, float] = {"prefill": 0.0, "decode": 0.0}
-        self.call_counts: dict[str, int] = {"prefill": 0, "decode": 0}  # runs
+        # speculative decoding is not ported yet: the scheduler reads these
+        self.spec = None
+        self.spec_skip_reason = ""
+        names = ("prefill", "decode", *SLOT_PROGRAMS)
+        self.trace_counts: dict[str, int] = dict.fromkeys(names, 0)  # captures
+        self.capture_seconds: dict[str, float] = dict.fromkeys(names, 0.0)
+        self.call_counts: dict[str, int] = dict.fromkeys(names, 0)  # runs
+        # slot programs run eagerly on the card (none should, but with
+        # loop="python"), and the device memory reserved while capturing
+        # them into their one shared pool
+        self.slot_eager_runs = 0
+        self.slot_graph_bytes = 0
+        self._slot_pool = None
         self._states: dict[int, _State] = {}
+        self._slot_states: dict[tuple[int, int | None], SlotState] = {}
         self._prefills: dict[tuple[int, int], tuple[_Graph, torch.Tensor]] = {}
         self._decodes: dict[int, _Graph] = {}
         self._checked_contracts: set[str] = set()
@@ -198,9 +323,10 @@ class ServeEngine:
         st.n_out.add_(1)
         st.pos.add_(1)
 
-    def _capture(self, kind: str, fn: Callable[[], None], generator) -> _Graph:
-        """``fn`` captured into a CUDA graph, with what its launches count;
-        counted in ``trace_counts[kind]`` and timed (host clock) in
+    def _capture(self, kind: str, fn: Callable[[], None], generator, pool=None) -> _Graph:
+        """``fn`` captured into a CUDA graph (in memory pool ``pool``, else
+        its own), with what its launches count; counted in
+        ``trace_counts[kind]`` and timed (host clock) in
         ``capture_seconds[kind]``.  Raises if the capture fails."""
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -208,7 +334,7 @@ class ServeEngine:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=pool):
             fn()
         launches = counters.diff(counters.snapshot(), before)
         counters.restore(before)  # a capture runs nothing
@@ -342,3 +468,217 @@ class ServeEngine:
             self._checked_contracts.add("paged")
         return self.arch.init_paged_cache(n_slots + n_blocks, self.sc.block_len, self.device,
                                           cache_quant_int8=self.cache_quant_int8)
+
+    # ------------------------------------------------------- slot programs
+
+    def slot_state(self, n_slots: int, n_blocks: int | None = None,
+                   seed: int = 0) -> SlotState:
+        """The engine's slot state for ``n_slots`` slots (and, paged,
+        ``n_blocks`` allocatable blocks), made on first use and reset
+        (tok / pos / done / policy zeroed, the generator seeded with
+        ``seed``) on every later one; its graphs are kept."""
+        paged = self.sc.kv_layout == "paged"
+        if paged != (n_blocks is not None):
+            raise ValueError("n_blocks applies to kv_layout='paged' only, and is "
+                             "required there")
+        key = (n_slots, n_blocks)
+        st = self._slot_states.get(key)
+        if st is None:
+            cache = (self.init_paged_cache(n_blocks, n_slots) if paged
+                     else self.init_slot_cache(n_slots))
+            gen = (torch.Generator(device=self.device) if self.sc.temperature > 0.0
+                   else None)
+            st = self._slot_states[key] = SlotState(
+                cache, n_slots, self.max_blocks_per_slot if paged else 0, self.device, gen)
+        st.reset()
+        if st.generator is not None:
+            st.generator.manual_seed(seed)
+        return st
+
+    def _upload(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """dst ← arr (int64), from pinned memory without a host sync on the
+        card (the pinned block is not reused before the copy has run)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int64).reshape(-1))
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _run_slot(self, st: SlotState, name: str, shape: tuple, inp: np.ndarray,
+                  body: Callable[[SlotState, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """Run slot program ``name`` at ``shape`` with host input ``inp``:
+        eagerly on the CPU and under loop="python", else replayed from its
+        graph (captured at the first call at this shape, after a warm-up
+        on a scratch copy of the state).  Returns the program's output, a
+        fresh tensor (a replay overwrites the graph's)."""
+        self.call_counts[name] += 1
+        prog = st.programs.get((name, shape))
+        if prog is None:
+            prog = st.programs[(name, shape)] = _Program(
+                torch.empty((inp.size,), dtype=torch.long, device=self.device))
+        self._upload(prog.inp, inp)
+        if not self.graphs:
+            if self.device.type == "cuda":
+                self.slot_eager_runs += 1
+            return body(st, prog.inp)
+        if prog.graph is None:
+            warm = torch.Generator(device=self.device) if st.generator is not None else None
+            body(st.scratch(warm), prog.inp)
+            if self._slot_pool is None:
+                self._slot_pool = torch.cuda.graph_pool_handle()
+            torch.cuda.empty_cache()  # as the capture does: count only what it adds
+            reserved = torch.cuda.memory_reserved(self.device)
+            out = []
+            prog.graph = self._capture(name, lambda: out.append(body(st, prog.inp)),
+                                       st.generator, pool=self._slot_pool)
+            self.slot_graph_bytes += torch.cuda.memory_reserved(self.device) - reserved
+            prog.out = out[0]
+        self._replay(prog.graph)
+        return prog.out.clone()
+
+    def _slot_step(self, st: SlotState, active: torch.Tensor, limit: torch.Tensor,
+                   block_table: torch.Tensor | None, go: torch.Tensor | None) -> torch.Tensor:
+        """One masked decode step over every slot, in place (the reference's
+        ``slot_step``, shared by every segment).  Inactive and done slots
+        still flow through the forward but are masked: pos frozen, token
+        held, emitted −1.  ``go`` (while segments): where it is False
+        nothing advances, as if the loop had stopped."""
+        sc = self.sc
+        logits, _ = self.arch.forward(self.params, tokens=st.tok[:, None], cache=st.cache,
+                                      cache_pos=st.pos, block_table=block_table)
+        nxt = self._sample(logits[:, 0], st.generator)
+        live = active & ~st.done
+        if go is not None:
+            live = live & go
+        done = st.done
+        if sc.eos_token >= 0:
+            done = done | (live & (nxt == sc.eos_token))
+        emitted = torch.where(live, nxt, -1)
+        st.tok.copy_(torch.where(live, nxt, st.tok))
+        pos = torch.where(live, st.pos + 1, st.pos)
+        st.pos.copy_(pos)
+        done = done | (active & (pos >= limit))
+        st.done.copy_(done if go is None else torch.where(go, done, st.done))
+        return emitted
+
+    def slot_segment(self, st: SlotState, n_steps: int, mode: str, active: np.ndarray,
+                     limit: np.ndarray, stop_on_free: bool = False,
+                     block_table: np.ndarray | None = None) -> torch.Tensor:
+        """``n_steps`` masked decode steps over every slot → the emitted
+        tokens (n_slots, n_steps), −1 where a slot was masked.  ``mode``
+        "while" stops (predicated, see the module docstring) when every
+        active slot is done, or a slot has finished and ``stop_on_free``."""
+        if mode not in ("scan", "while"):
+            raise ValueError(f"mode must be 'scan' or 'while', got {mode!r}")
+        paged = self.sc.kv_layout == "paged"
+        name = ("slot_segment" + ("_while" if mode == "while" else "")
+                + ("_paged" if paged else ""))
+        pol = np.zeros(st.policy.shape[0], np.int64)
+        n = st.n_slots
+        pol[:n], pol[n:2 * n], pol[2 * n] = active, limit, stop_on_free
+        if paged:
+            pol[2 * n + 1:] = np.asarray(block_table).reshape(-1)
+        self._upload(st.policy, pol)
+
+        def body(s: SlotState, _inp: torch.Tensor) -> torch.Tensor:
+            act, lim = s.active, s.limit
+            bt = s.block_table if paged else None
+            out = torch.full((n, n_steps), -1, dtype=torch.long, device=self.device)
+            go = None
+            if mode == "while":
+                go = torch.ones((), dtype=torch.bool, device=self.device)
+                sof = s.stop_on_free
+            for i in range(n_steps):
+                if go is not None:
+                    running = (act & ~s.done).any()
+                    freed = (act & s.done).any()
+                    go = go & running & ~(sof & freed)
+                out[:, i] = self._slot_step(s, act, lim, bt, go)
+            return out
+
+        return self._run_slot(st, name, (n_steps,), np.zeros(1, np.int64), body)
+
+    def prefill_slot(self, st: SlotState, prompt: np.ndarray, slot: int,
+                     bt_row: np.ndarray | None = None) -> torch.Tensor:
+        """Prefill one request (P,) and install it into ``slot`` → its first
+        token (1,).  The prefill runs over a (1, max_len) cache under both
+        layouts, as ``generate`` does (its sums run over the same length,
+        so its bits are generate's); dense writes the whole row into the
+        slot, paged (``bt_row``: the slot's block-table row) the first
+        ceil(P / block_len) blocks into the physical blocks the row maps."""
+        paged = self.sc.kv_layout == "paged"
+        name = "prefill_slot_paged" if paged else "prefill_slot"
+        p_len = int(prompt.shape[0])
+        mb = st.max_blocks
+        inp = np.concatenate([[slot], bt_row if paged else [], prompt]).astype(np.int64)
+
+        def body(s: SlotState, x: torch.Tensor) -> torch.Tensor:
+            slot_t = torch.clamp(x[:1], 0, s.n_slots - 1)
+            tokens = x[1 + mb:].view(1, p_len)
+            small = self.arch.init_cache(1, self.sc.max_len, self.device,
+                                         cache_quant_int8=self.cache_quant_int8)
+            logits, small = self.arch.forward(self.params, tokens=tokens, cache=small)
+            first = self._sample(logits[:, -1], s.generator)
+            if paged:
+                nb = -(-p_len // self.sc.block_len)
+                registry.write_cache_block(
+                    s.cache, {k: v[:, :, :nb * self.sc.block_len] for k, v in small.items()},
+                    x[1:1 + nb])
+            else:
+                registry.write_cache_slot(s.cache, small, slot_t)
+            s.tok.index_copy_(0, slot_t, first)
+            s.pos.index_fill_(0, slot_t, p_len)
+            s.done.index_fill_(0, slot_t, False)
+            return first
+
+        return self._run_slot(st, name, (p_len,), inp, body)
+
+    def prefill_slots(self, st: SlotState, prompts: np.ndarray, slots: np.ndarray,
+                      starts: np.ndarray, last_local: np.ndarray,
+                      bt_rows: np.ndarray | None = None) -> torch.Tensor:
+        """Prefill one chunk (W, Cb) for up to W slot rows in one launch →
+        the first token sampled at each row's last real token (W,).  A slot
+        id out of range marks a dummy row: its gather clamps and every one
+        of its writes drops (the reference's mode="drop"), with no host
+        sync.  Dense: the rows are gathered, resumed at ``starts`` and
+        scattered back; paged (``bt_rows`` (W, max_blocks), dummy rows with
+        distinct out-of-range block ids): the chunk scatters straight into
+        each row's blocks."""
+        paged = self.sc.kv_layout == "paged"
+        name = "prefill_slots_paged" if paged else "prefill_slots"
+        w, cb = prompts.shape
+        mb = st.max_blocks
+        inp = np.concatenate([slots, starts, last_local, prompts.reshape(-1)]
+                             + ([bt_rows.reshape(-1)] if paged else [])).astype(np.int64)
+
+        def body(s: SlotState, x: torch.Tensor) -> torch.Tensor:
+            slots_t, starts_t, last_t = x[:w], x[w:2 * w], x[2 * w:3 * w]
+            tokens = x[3 * w:3 * w + w * cb].view(w, cb)
+            if paged:
+                bt = x[3 * w + w * cb:].view(w, mb)
+                logits, _ = self.arch.forward(self.params, tokens=tokens, cache=s.cache,
+                                              cache_pos=starts_t, block_table=bt)
+            else:
+                small = registry.gather_cache_slots(s.cache, slots_t)
+                logits, small = self.arch.forward(self.params, tokens=tokens, cache=small,
+                                                  cache_pos=starts_t)
+                registry.write_cache_slots(s.cache, small, slots_t)
+            last = torch.gather(logits, 1, last_t[:, None, None].expand(
+                w, 1, logits.shape[-1]))[:, 0]
+            firsts = self._sample(last, s.generator)
+            # tok / pos / done at the rows' slots, dummy rows dropped: the
+            # slot-cache scatter over (1, n_slots) views
+            registry.write_cache_slots(
+                {"tok": s.tok[None], "pos": s.pos[None], "done": s.done[None]},
+                {"tok": firsts[None], "pos": (starts_t + last_t + 1)[None],
+                 "done": torch.zeros_like(firsts, dtype=torch.bool)[None]}, slots_t)
+            return firsts
+
+        return self._run_slot(st, name, (w, cb), inp, body)
+
+    def slot_graph_launches(self) -> dict[tuple, counters.Counts]:
+        """What one replay of each captured slot graph launches, by
+        (n_slots, n_blocks, program, shape)."""
+        return {(*key, *pk): prog.graph.launches
+                for key, st in self._slot_states.items()
+                for pk, prog in st.programs.items() if prog.graph is not None}

@@ -22,10 +22,12 @@ from repro.sharding.mesh import MeshPlan
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.registry import get_arch
-from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.engine import SLOT_PROGRAMS, ServeConfig, ServeEngine
 
 QUANT = dict(weight_quant="int8", weight_quant_sparsity=0.5, weight_quant_block=(16, 16))
 B, S, NEW, MAX_LEN = 2, 8, 8, 32
+
+NO_SLOT_RUNS = dict.fromkeys(SLOT_PROGRAMS, 0)  # generate runs no slot program
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +71,7 @@ def test_greedy_tokens_equal_jax_engine(jax_side, eos):
     got = eng.generate(torch.from_numpy(jax_side[2]), NEW)
     assert got.shape == (B, NEW)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert eng.call_counts == {"prefill": 1, "decode": NEW - 1}
+    assert eng.call_counts == {"prefill": 1, "decode": NEW - 1, **NO_SLOT_RUNS}
 
 
 def test_port_quantization_gives_jax_tokens(jax_side):

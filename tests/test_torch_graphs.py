@@ -23,10 +23,12 @@ import torch
 from repro_torch.kernels import counters
 from repro_torch.models import transformer as tT
 from repro_torch.models.registry import get_arch
-from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.engine import SLOT_PROGRAMS, ServeConfig, ServeEngine
 
 B, S, NEW, MAX_LEN = 3, 8, 12, 32
 INT8 = dict(weight_quant="int8", weight_quant_sparsity=0.5)
+
+NO_SLOT_RUNS = dict.fromkeys(SLOT_PROGRAMS, 0)  # generate runs no slot program
 
 
 @pytest.fixture
@@ -71,8 +73,8 @@ def test_cpu_loops_run_eagerly_and_agree():
         assert torch.equal(outs["scan"], outs["python"]) and torch.equal(
             outs["while"], outs["python"]), kw
         for eng in engines.values():
-            assert eng.trace_counts == {"prefill": 0, "decode": 0}
-            assert eng.call_counts == {"prefill": 1, "decode": NEW - 1}
+            assert eng.trace_counts == {"prefill": 0, "decode": 0, **NO_SLOT_RUNS}
+            assert eng.call_counts == {"prefill": 1, "decode": NEW - 1, **NO_SLOT_RUNS}
             assert not eng.graphs
 
 
@@ -140,9 +142,9 @@ def test_cuda_graph_loops_equal_eager_bitwise(cuda, weights, quant):
             got = eng.generate(prompts, NEW)
             assert torch.equal(got, want), loop
             assert torch.equal(eng.last_logits[B], want_logits), loop
-        assert eng.trace_counts == {"prefill": 1, "decode": 1}, loop
-        assert eng.call_counts == {"prefill": 2, "decode": 2 * (NEW - 1)}, loop
-    assert engines["python"].trace_counts == {"prefill": 0, "decode": 0}
+        assert eng.trace_counts == {"prefill": 1, "decode": 1, **NO_SLOT_RUNS}, loop
+        assert eng.call_counts == {"prefill": 2, "decode": 2 * (NEW - 1), **NO_SLOT_RUNS}, loop
+    assert engines["python"].trace_counts == {"prefill": 0, "decode": 0, **NO_SLOT_RUNS}
 
 
 @pytest.mark.cuda
@@ -160,7 +162,7 @@ def test_cuda_graph_loops_sample_as_eager(cuda):
     assert torch.equal(outs["scan"][0], outs["scan"][1])
     assert not torch.equal(outs["scan"][0], outs["scan"][2])
     # one generator object throughout: captured once
-    assert engines["scan"].trace_counts == {"prefill": 1, "decode": 1}
+    assert engines["scan"].trace_counts == {"prefill": 1, "decode": 1, **NO_SLOT_RUNS}
 
 
 @pytest.mark.cuda

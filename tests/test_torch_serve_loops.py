@@ -20,10 +20,12 @@ from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro.sharding.mesh import MeshPlan
 from repro_torch.convert import params_from_jax
 from repro_torch.models.registry import get_arch
-from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.engine import SLOT_PROGRAMS, ServeConfig, ServeEngine
 
 QUANT = dict(weight_quant="int8", weight_quant_sparsity=0.5, weight_quant_block=(16, 16))
 B, S, NEW, MAX_LEN = 3, 8, 12, 32
+
+NO_SLOT_RUNS = dict.fromkeys(SLOT_PROGRAMS, 0)  # generate runs no slot program
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +61,9 @@ def test_loops_give_jax_greedy_tokens(jax_side, loop):
     eng = _engine(raw_t, loop=loop)
     got = eng.generate(torch.from_numpy(prompts), NEW)
     np.testing.assert_array_equal(got.numpy(), want[False])
-    assert eng.call_counts == {"prefill": 1, "decode": NEW - 1}
-    assert eng.trace_counts == {"prefill": 0, "decode": 0}  # the CPU captures nothing
+    assert eng.call_counts == {"prefill": 1, "decode": NEW - 1, **NO_SLOT_RUNS}
+    # the CPU captures nothing
+    assert eng.trace_counts == {"prefill": 0, "decode": 0, **NO_SLOT_RUNS}
 
 
 @pytest.mark.parametrize("loop", ["scan", "while", "python"])
@@ -113,6 +116,6 @@ def test_second_generate_repeats_and_counts(jax_side):
     b = eng.generate(torch.from_numpy(prompts), NEW)
     assert torch.equal(a, b)
     np.testing.assert_array_equal(a.numpy(), want[False])
-    assert eng.call_counts == {"prefill": 2, "decode": 2 * (NEW - 1)}
+    assert eng.call_counts == {"prefill": 2, "decode": 2 * (NEW - 1), **NO_SLOT_RUNS}
     # one state per batch size, reused
     assert list(eng.last_logits) == [B]
