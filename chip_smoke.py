@@ -149,12 +149,30 @@ Phases, in order; any failure exits non-zero before the last line:
      paged: tok/s, p50 / p95 latency and TTFT (median, min, max of 3 runs
      after one that captures), segments, admit ms per round, captures, and
      the card's busy time (torch.profiler) against the median wall.
+ 14. speculative decoding (``phase_speculative``, after continuous
+     serving): the same 8 requests under k = 4 drafters — ``truncate:1``
+     (scan / while × dense / paged), ``self`` (the seed's raw weights pruned
+     to 0.75 and kept block-sparse in bf16, on block_sparse_matmul) and
+     ``truncate:22`` (the whole model, whose drafts must all be accepted
+     but at budget edges) — and k = 2 ``truncate:1`` with int8 KV, paged
+     overcommit with recompute (preemption must happen) and chunked
+     admission, each request equal to its own ``generate`` at B = 1; the
+     counters zeroed just before each run and read just after (the int8
+     pair, and block_sparse_matmul for ``self``, launched, every launch on
+     the tensor cores); each spec program one graph of one round per
+     geometry, none run eagerly, with its launches per round.  Then
+     block_sparse_matmul's time for one draft step (154 projections, M = 4,
+     bf16 values) beside its plain version, x @ W and the bound; and 32
+     requests at 100 requests/s, dense while, plain and the three k = 4
+     drafters: tok/s, latency and TTFT (median, min, max of 3), accepted
+     tokens per round, predicated rounds, captures and the busy time.
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -184,13 +202,14 @@ from repro_torch.core.clustering import (  # noqa: E402
 )
 from repro_torch.core.compression import compress_fc, compressed_fc_apply  # noqa: E402
 from repro_torch.core.sonic_layers import (  # noqa: E402
+    BlockSparseWeight,
     BlockSparseWeightInt8,
     SonicExecutionConfig,
     convert_linear,
     make_block_sparse_int8,
     sonic_linear_apply,
 )
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, counters  # noqa: E402
 from repro_torch.kernels.block_sparse_matmul import kernel as bs_kernel  # noqa: E402
 from repro_torch.kernels.clustered_matmul import kernel as cm_kernel  # noqa: E402
 from repro_torch.core.sparsity import (  # noqa: E402
@@ -208,7 +227,13 @@ from repro_torch.models import cnn, layers, transformer  # noqa: E402
 from repro_torch.photonic.accelerator import SonicAccelerator, SonicHWConfig  # noqa: E402
 from repro_torch.photonic.baselines import evaluate_all  # noqa: E402
 from repro_torch.photonic.mapper import cnn_workload, lm_workload  # noqa: E402
-from repro_torch.serve.engine import SLOT_PROGRAMS, ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    SLOT_PROGRAMS,
+    ServeConfig,
+    ServeEngine,
+    SpecConfig,
+    no_gc,
+)
 from repro_torch.serve.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.utils.tree import tree_param_count  # noqa: E402
 
@@ -541,7 +566,8 @@ def _step_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    gc.collect()
+    with no_gc(), torch.cuda.graph(graph):
         fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1151,6 +1177,280 @@ def phase_continuous(eng, card: str) -> None:
                   "seconds": time.perf_counter() - t_config})
 
 
+SPEC_K = 4
+
+
+def _zero_counts() -> None:
+    """Every kernel wrapper's launch and route counters set to 0."""
+    for fn in counters.WRAPPERS.values():
+        fn.launches = 0
+        fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def _full_acceptance_hist(news, k: int) -> dict[int, int]:
+    """The accepted-length histogram when every draft is accepted: a
+    request of n new tokens decodes n − 1 after its prefill's first, in
+    (n − 1) // (k + 1) rounds of k + 1 and, where a remainder is left, one
+    round of it at its budget's edge (segment and admission boundaries fall
+    between rounds, so they split none)."""
+    hist: dict[int, int] = {}
+    for n in news:
+        for size, count in ((k + 1, (int(n) - 1) // (k + 1)), ((int(n) - 1) % (k + 1), 1)):
+            if size and count:
+                hist[size] = hist.get(size, 0) + count
+    return dict(sorted(hist.items()))
+
+
+def _spec_engine(eng, k: int, draft: str, layout="dense", quant=False, raw=None):
+    """A continuous-serving engine (as ``_cont_engine``) that speculates:
+    ``raw`` (the served seed's unquantized params) for the self-drafter,
+    which prunes them; the truncated drafters slice the served tree."""
+    spec = SpecConfig(k=k, draft=draft, draft_sparsity=0.75)
+    sc = dataclasses.replace(eng.sc, max_len=CONT_MAX_LEN, kv_layout=layout,
+                             block_len=CONT_BLOCK_LEN, loop="scan", spec=spec)
+    return ServeEngine(eng.arch, raw if raw is not None else eng.params, sc,
+                       device=eng.device, cache_quant_int8=quant)
+
+
+def _spec_round_launches(e) -> dict:
+    """What one replay of each captured spec program (one round) launches."""
+    return {name: _counts(launches) for (_, _, name, *_), launches
+            in e.slot_graph_launches().items() if name.startswith("slot_spec")}
+
+
+def _draft_step_timing(e) -> dict:
+    """One draft step's block-sparse projections of the self-drafter (22
+    layers × 7; its LM head is the dense raw one, as the reference's) at
+    M = n_slots = 4, bf16 x (N(0, 1), the scale of an RMS-normed
+    activation) and values: each projection's kernel output held to its
+    plain version within ``TOL``; then the times of the kernel, the plain
+    version, x @ the densified bf16 weight, and the bound (bytes: kept bf16
+    values + int32 indices + x (bf16) + y (fp32); operations: 2·M·kept
+    weights)."""
+    cfg, m = e.cfg, 4
+    weights = []
+    for i in range(cfg.n_layers):
+        for blk, proj in PROJECTIONS:
+            leaf = e.draft_params["layers"][blk][proj]
+            k = cfg.d_ff if (blk, proj) == ("ffn", "wo") else cfg.d_model
+            weights.append((k, leaf["bsvalues"][i], leaf["bsindices"][i]))
+    dense = [BlockSparseWeight(v, ix, k // v.shape[2]).dense(torch.bfloat16)
+             for k, v, ix in weights]
+    xs = {k: torch.randn((m, k), device=e.device, dtype=torch.bfloat16)
+          for k in (cfg.d_model, cfg.d_ff)}
+    n_bytes = n_ops = bound_s = 0.0
+    for k, v, ix in weights:
+        b = 2 * v.numel() + 4 * ix.numel() + 2 * m * k + 4 * m * v.shape[0] * v.shape[3]
+        ops = 2.0 * m * v.numel()
+        n_bytes, n_ops = n_bytes + b, n_ops + ops
+        bound_s += max(b / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+
+    def run(fn):
+        return lambda: [fn(xs[k], v, ix) for k, v, ix in weights]
+
+    wrapper = bs_kernel.block_sparse_matmul_kernel
+    before = wrapper.routes.get(build.TENSOR_CORES, 0)
+    err = 0.0
+    for k, v, ix in weights:
+        got, want = wrapper(xs[k], v, ix), bs_kernel.block_sparse_matmul_plain(xs[k], v, ix)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+        err = max(err, (got - want).abs().max().item())
+    out = {"rows": m, "launches_per_step": len(weights), "values": "bfloat16",
+           "sparsity": 0.75, "kept_value_bytes": sum(2 * v.numel() for _, v, _ in weights),
+           "checked_against_plain": len(weights), "tolerance": TOL, "max_abs_err": err,
+           "ms": _step_ms(run(wrapper)),
+           "plain_ms": _step_ms(run(bs_kernel.block_sparse_matmul_plain)),
+           "bound_ms": bound_s * 1e3,
+           "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / BF16_TENSOR_FLOPS
+           else "operations",
+           "library_ms": _step_ms(lambda: [xs[k] @ d for (k, *_), d in zip(weights, dense)])}
+    if wrapper.routes.get(build.TENSOR_CORES, 0) == before:
+        raise AssertionError("speculative: the draft step's timed launches took no tensor core")
+    return out
+
+
+def phase_speculative(eng, card: str) -> dict:
+    """Speculative decoding through ``ContinuousScheduler`` at full width,
+    each spec program one CUDA graph of one round per geometry, replayed.
+
+    Bit for bit: ``phase_continuous``'s 8 seed-0 requests at n_slots 4,
+    segment_len 8, max_len 128, block_len 16, each equal to its own
+    ``generate`` at B = 1, under k = 4 drafters ``truncate:1`` (scan and
+    while × dense and paged), ``self`` at sparsity 0.75 (block_sparse_matmul
+    on bf16 values) and ``truncate:22`` (the whole model: every round but a
+    budget's last emits k + 1), and k = 2 ``truncate:1`` with int8 KV,
+    paged with overcommit 2.0 on ``CONT_SMALL_POOL`` blocks (recompute,
+    preemption must happen) and chunked admission.  The counters zeroed
+    just before each run and read just after: the int8 pair launched in
+    every run, block_sparse_matmul in the self-drafter's, every bf16
+    launch on the tensor cores; each spec program captured once per
+    geometry, none run eagerly.
+
+    Then block_sparse_matmul's time for one draft step of the self-drafter,
+    and, timed: 32 requests at 100 requests/s through
+    ``launch.serve.run_poisson``, dense while, plain and the three k = 4
+    drafters on the same draws: a first run captures, 3 timed runs (median,
+    min, max), one under torch.profiler for the card's busy time.
+    Returns what the kernels line adds to the three kernels' entries."""
+    t_phase = time.perf_counter()
+    dev = eng.device
+    arrivals, p_lens, n_news, prompts = serve._poisson_draws(_cont_args(8, 100.0, 8),
+                                                              eng.cfg.vocab_size)
+    raw = eng.arch.init_params(torch.Generator(device=dev).manual_seed(0), dev)  # served seed
+    full = f"truncate:{eng.cfg.n_layers}"  # a drafter of the whole model
+    engines = {"truncate1_dense": _spec_engine(eng, SPEC_K, "truncate:1"),
+               "truncate1_paged": _spec_engine(eng, SPEC_K, "truncate:1", "paged"),
+               "self075_dense": _spec_engine(eng, SPEC_K, "self", raw=raw),
+               "truncate22_dense": _spec_engine(eng, SPEC_K, full),
+               "k2_int8_kv": _spec_engine(eng, 2, "truncate:1", quant=True),
+               "k2_paged": _spec_engine(eng, 2, "truncate:1", "paged"),
+               "k2_dense": _spec_engine(eng, 2, "truncate:1")}
+    del raw
+    oracles = {"bf16": _cont_engine(eng), "int8_kv": _cont_engine(eng, quant=True)}
+    want = {key: [o.generate(torch.from_numpy(p)[None].to(dev), int(n))[0].tolist()
+                  for p, n in zip(prompts, n_news)] for key, o in oracles.items()}
+    del oracles
+    runs = [("truncate1_dense_scan", "truncate1_dense", dict(segment_mode="scan")),
+            ("truncate1_dense_while", "truncate1_dense", dict(segment_mode="while")),
+            ("truncate1_paged_scan", "truncate1_paged", dict(segment_mode="scan")),
+            ("truncate1_paged_while", "truncate1_paged", dict(segment_mode="while")),
+            ("self075_dense_while", "self075_dense", dict(segment_mode="while")),
+            ("truncate22_dense_while", "truncate22_dense", dict(segment_mode="while")),
+            ("k2_int8_kv", "k2_int8_kv", {}),
+            ("k2_paged_recompute", "k2_paged", dict(n_blocks=CONT_SMALL_POOL, overcommit=2.0,
+                                                     preempt_mode="recompute")),
+            ("k2_dense_chunked", "k2_dense", dict(prefill_chunk=32, prefill_buckets=4))]
+    out = {"phase": "speculative", "card": card, "requests": len(prompts),
+           "max_len": CONT_MAX_LEN, "block_len": CONT_BLOCK_LEN, "bit_for_bit": {}}
+    for name, key, kw in runs:
+        t_run = time.perf_counter()
+        e = engines[key]
+        kw = {"n_slots": 4, "segment_len": 8, **kw}
+        captures0, seconds0 = dict(e.trace_counts), sum(e.capture_seconds.values())
+        sched = ContinuousScheduler(e, **kw)
+        handles = [sched.submit(p, int(n)) for p, n in zip(prompts, n_news)]
+        _zero_counts()
+        sched.run()
+        torch.cuda.synchronize()
+        counts = counters.snapshot()
+        st = sched.stats
+        ref = want["int8_kv" if key == "k2_int8_kv" else "bf16"]
+        differing = sum(h.tokens != w for h, w in zip(handles, ref))
+        hist = {int(n): c for n, c in sorted(st["accepted_hist"].items())}
+        line = {"k": e.spec.k, "draft": e.spec.draft, "differing_requests": differing,
+                "segments": st["segments"], "spec_steps": st["spec_steps"],
+                "accepted_hist": hist,
+                "accepted_per_round": st["spec_emitted"] / max(st["spec_steps"], 1),
+                "steps_predicated": st["steps_predicated"],
+                "launches": {n: c for n, (c, _) in counts.items() if c},
+                "routes": {n: r for n, (c, r) in counts.items() if c},
+                "captures": {k: v - captures0[k] for k, v in e.trace_counts.items()
+                             if v != captures0[k]},
+                "capture_seconds": sum(e.capture_seconds.values()) - seconds0,
+                "preemptions": st["preemptions"], "seconds": time.perf_counter() - t_run}
+        out["bit_for_bit"][name] = line
+        if differing or not all(h.done for h in handles):
+            raise AssertionError(f"speculative {name}: {differing} requests differ from "
+                                 f"generate at B = 1: {line}")
+        need = [INT8_MATVEC, INT8_MATMUL] + (["block_sparse_matmul"] if "self" in key else [])
+        if any(counts[n][0] == 0 for n in need):
+            raise AssertionError(f"speculative {name}: launches {line['launches']}, want "
+                                 f"{need} each launched")
+        if any(r.get(build.CUDA_CORES, 0) for n, r in line["routes"].items()
+               if n in need) or not st["spec_steps"]:
+            raise AssertionError(f"speculative {name}: routes {line['routes']}, want every "
+                                 f"bf16 launch on the tensor cores")
+        if "overcommit" in kw and not st["preemptions"]:
+            raise AssertionError(f"speculative {name}: no preemption")
+        if key == "truncate22_dense" and hist != _full_acceptance_hist(n_news, e.spec.k):
+            raise AssertionError(f"speculative {name}: the full-depth drafter had drafts "
+                                 f"rejected: {hist}, want "
+                                 f"{_full_acceptance_hist(n_news, e.spec.k)}")
+    out["graphs"] = {key: {"captures": _slot_captures_once(e),
+                           "capture_seconds": {k: e.capture_seconds[k] for k in SLOT_PROGRAMS
+                                               if e.capture_seconds[k]},
+                           "pool_reserved_bytes": e.slot_graph_bytes,
+                           "pool_reserved_bytes_by_program": {
+                               k: v for k, v in e.slot_graph_bytes_by_program.items() if v},
+                           "launches_per_round": _spec_round_launches(e)}
+                     for key, e in engines.items()}
+    for key, g in out["graphs"].items():
+        spec_caps = {k: v for k, v in g["captures"].items() if k.startswith("slot_spec")}
+        if any(v != 1 for v in spec_caps.values()) or not spec_caps:
+            raise AssertionError(f"speculative {key}: spec captures {spec_caps}, want one "
+                                 f"per program")
+    draft_step = _draft_step_timing(engines["self075_dense"])
+    out["draft_step_block_sparse_matmul"] = draft_step
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    # launches of one k = 4 round (a replay of the while program), by drafter
+    per_round = {engines[key].spec.draft: out["graphs"][key]["launches_per_round"][
+        "slot_spec_segment_while"] for key in ("truncate1_dense", "self075_dense",
+                                               "truncate22_dense")}
+    extras = {name: {"spec_launches_per_round": {d: r.get(name, 0)
+                                                 for d, r in per_round.items()}}
+              for name in ("block_sparse_matmul", INT8_MATVEC, INT8_MATMUL)}
+    extras["block_sparse_matmul"]["spec_draft_step"] = draft_step
+    for key in ("k2_int8_kv", "k2_paged", "k2_dense", "truncate1_paged", "truncate22_dense"):
+        del engines[key]
+
+    args = _cont_args(32, 100.0, 16)
+    args.segment_mode, args.kv_layout = "while", "dense"
+    draws = serve._poisson_draws(args, eng.cfg.vocab_size)
+    timed_engines = {"plain": _cont_engine(eng), "truncate1": engines["truncate1_dense"],
+                     "self075": engines["self075_dense"],
+                     "truncate22": _spec_engine(eng, SPEC_K, full)}
+    del engines
+    for name, e in timed_engines.items():
+        t_config = time.perf_counter()
+        useful, total, sched, _ = serve.run_poisson(e, args, draws, verbose=False)
+        first_tok_s = useful / total
+        captured = dict(e.trace_counts)
+        timed = []
+        for _ in range(3):
+            useful, total, sched, handles = serve.run_poisson(e, args, draws, verbose=False)
+            timed.append(serve.report_poisson(e, useful, total, sched, handles))
+            if sched.stats["admitted"] != sched.stats["retired"] or sched.has_work():
+                raise AssertionError(f"speculative timed {name}: not drained")
+        if e.trace_counts != captured:
+            raise AssertionError(f"speculative timed {name}: a repeat captured")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_run = serve.run_poisson(e, args, draws, verbose=False)
+        busy_ms, launches = _device_busy(prof)
+        wall_ms = statistics.median(1e3 * t["seconds"] for t in timed)
+        st = sched.stats
+        if name == "truncate22" and st["accepted_hist"] != _full_acceptance_hist(draws[2],
+                                                                                 SPEC_K):
+            raise AssertionError(f"speculative timed {name}: drafts rejected: "
+                                 f"{st['accepted_hist']}")
+        emit({"phase": "speculative_timed", "card": card, "drafter": name,
+              "draft": e.spec.draft if e.spec is not None else None,
+              "k": e.spec.k if e.spec is not None else 0, "layout": "dense",
+              "segment_mode": "while", "requests": args.n_requests, "rate": args.rate,
+              "segment_len": args.segment_len, "max_len": CONT_MAX_LEN,
+              "tokens": timed[-1]["tokens"],
+              "admitted_retired": [st["admitted"], st["retired"]],
+              "segments": st["segments"], "steps_total": st["steps_total"],
+              "accepted_per_round": timed[-1].get("accepted_per_round"),
+              "accepted_hist": {int(n): c for n, c in sorted(st["accepted_hist"].items())},
+              "steps_predicated": st["steps_predicated"],
+              "first_run_tok_s": first_tok_s,
+              "captures": _slot_captures_once(e),
+              "capture_seconds": {k: e.capture_seconds[k] for k in SLOT_PROGRAMS
+                                  if e.capture_seconds[k]},
+              "pool_reserved_bytes": e.slot_graph_bytes,
+              "pool_reserved_bytes_by_program": {
+                  k: v for k, v in e.slot_graph_bytes_by_program.items() if v},
+              "spread_of_3": {k: _spread([t[k] for t in timed])
+                              for k in timed[0] if k.endswith(("_s", "_ms"))},
+              "wall_ms_median": wall_ms, "profiled_wall_ms": 1e3 * prof_run[1],
+              "device_busy_ms": busy_ms or None,
+              "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+              "device_kernel_launches": launches,
+              "seconds": time.perf_counter() - t_config})
+    return extras
+
+
 def _reset_routes() -> None:
     for name in ROUTED:
         LAYER_KERNELS[name]["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
@@ -1602,8 +1902,11 @@ def main() -> None:
     phase_row_bits(dev)
     phase_serving_modes(eng, eager, card)
     phase_continuous(eng, card)
+    spec_extras = phase_speculative(eng, card)
     converted, layer_launches = phase_layer_path(eng, card)
     kernels += phase_layer_timing(converted, layer_launches, layer_errs)
+    for entry in kernels:
+        entry.update(spec_extras.get(entry["name"], {}))
     del converted
     c3_err = phase_c3_kernel(dev)
     phase_c3_cnn(dev)

@@ -3,7 +3,9 @@
 The port of ``repro.core.sonic_layers``: the block-sparse and int8
 block-sparse weight formats and their converters, the one-time rewrite of a
 model's projections into int8 block-sparse form (``quantize_serve_params``,
-applied by ``serve_quant_apply``), and the execution-mode layer
+applied by ``serve_quant_apply``), the two drafters of speculative decoding
+(``sparse_draft_params``, kept block-sparse and applied by ``draft_apply``;
+``truncated_draft_params``), and the execution-mode layer
 ``sonic_linear_apply`` with its converter ``convert_linear``.  Its modes:
 
   dense / masked     x @ W
@@ -258,6 +260,98 @@ def _auto_block(k: int, n: int, cap: int = 128) -> tuple[int, int]:
         return b
 
     return side(k), side(n)
+
+
+def sparse_draft_params(
+    params: dict,
+    sparsity: float,
+    block: tuple[int, int] | None = None,
+    num_clusters: int = 0,
+    dtype: torch.dtype | None = None,
+) -> dict:
+    """The self-drafter of speculative decoding
+    (``serve.engine.SpecConfig(draft="self")``): a transformer's stacked
+    layer kernels in SONIC block-sparse form, kept block-sparse.
+
+    Every stacked ``{"kernel": (L, K, N)}`` under ``params["layers"]`` is
+    pruned as the reference prunes it (``make_block_sparse`` per layer at
+    ``block`` or ``_auto_block``'s, then, when ``num_clusters > 0``,
+    ``pack_clustered`` over the kept values of each matrix) and becomes
+
+        {"bsvalues":  (L, Nb, R, bk, bn) in ``dtype`` (default: the kernel's),
+         "bsindices": (L, Nb, R) int32}
+
+    which ``models.layers.dense_apply`` runs on ``block_sparse_matmul``: the
+    reference densifies the same blocks again and multiplies by them cast
+    to x's type, so storing them in the compute type keeps its weights.
+    Embeddings and norms are shared unchanged, and so is the LM head but
+    that, with ``dtype``, its kernel is cast to it once (the reference
+    casts it at every use).  ``sparsity=0.0`` keeps every block (an exact
+    conversion)."""
+
+    def convert(w: torch.Tensor) -> dict:
+        blk = block or _auto_block(w.shape[1], w.shape[2])
+        vals, idx = [], []
+        for i in range(w.shape[0]):
+            bs = make_block_sparse(w[i], sparsity, blk)
+            v = bs.values
+            if num_clusters > 0:
+                from repro_torch.core.clustering import ClusteringConfig, pack_clustered
+
+                nb, r, bk, bn = v.shape
+                cw = pack_clustered(v.reshape(nb * r * bk, bn),
+                                    ClusteringConfig(num_clusters=num_clusters))
+                v = cw.dense(w.dtype).reshape(nb, r, bk, bn)
+            vals.append(v.to(dtype or w.dtype))
+            idx.append(bs.indices)
+        return {"bsvalues": torch.stack(vals), "bsindices": torch.stack(idx)}
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if getattr(node.get("kernel"), "ndim", 0) == 3:
+            return convert(node["kernel"])
+        return {key: walk(val) for key, val in node.items()}
+
+    out = {**params, "layers": walk(params["layers"])}
+    head = params.get("lm_head", {})
+    if dtype is not None and "kernel" in head:
+        out["lm_head"] = {**head, "kernel": head["kernel"].to(dtype)}
+    return out
+
+
+def draft_leaf_dense(p: dict, k: int) -> torch.Tensor:
+    """One ``sparse_draft_params`` leaf back in dense form (L, K, N), for
+    checking it against the reference's densified drafter."""
+    vals, idx = p["bsvalues"], p["bsindices"]
+    kb = k // vals.shape[3]
+    return torch.stack([_densify(vals[i], idx[i], kb) for i in range(vals.shape[0])])
+
+
+def draft_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Apply one ``sparse_draft_params`` projection (any leading L axis
+    already sliced off) to x (..., K) on ``block_sparse_matmul``."""
+    # imported here: the kernel modules import this one
+    from repro_torch.kernels.block_sparse_matmul.ops import block_sparse_matmul
+
+    vals = p["bsvalues"]
+    return block_sparse_matmul(x, BlockSparseWeight(vals, p["bsindices"],
+                                                    x.shape[-1] // vals.shape[2]))
+
+
+def truncated_draft_params(params: dict, n_layers: int) -> dict:
+    """The first ``n_layers`` of a transformer's stacked layer params (views
+    of the served leaves), sharing the embed, final norm and LM head: the
+    layer-skipping self-drafter (``SpecConfig(draft="truncate:N")``).  Its
+    weights are the verifier's first layers, so its KV for any context is
+    the verifier's there, and it drafts from the verifier's cache."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {key: walk(val) for key, val in node.items()}
+        return node[:n_layers]
+
+    return {**params, "layers": walk(params["layers"])}
 
 
 def quantize_serve_params(

@@ -14,7 +14,12 @@ Weights are random, made from ``--seed`` on the device; batch prompts from
 one CUDA graph per decode step, replayed; ``while``: the same with an eos
 early exit; ``python``: the eager loop; on the poisson workload "python"
 runs the slot programs eagerly) and ``--cache-quant-int8`` the int8 KV
-cache, as in the reference's launcher.  The reference's ``--spec-*``,
+cache, as in the reference's launcher.  ``--spec-k`` (poisson workload,
+greedy) turns on speculative decoding with the drafter ``--spec-draft``
+("self": the weights pruned to ``--spec-sparsity`` and kept block-sparse;
+"truncate:N": the first N layers) and gives max_len ``spec_k`` positions of
+headroom; each segment's line then says the mean accepted tokens per
+round, and the summary gives the acceptance histogram.  The reference's
 ``--trace`` and ``--autotune`` are not ported yet.
 
 Usage, on the card (the CUDA kernels build into ``build/`` at first use,
@@ -31,6 +36,8 @@ On the CPU, at test size (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --weight-quant int8 --weight-quant-sparsity 0.5 --workload poisson \
         --n-requests 10 --rate 200 --new-tokens 24 --kv-layout paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --workload poisson --spec-k 2 --spec-draft truncate:1
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from repro_torch.configs.base import ALL_ARCH_IDS
 from repro_torch.kernels import build
 from repro_torch.models.registry import get_arch
 from repro_torch.serve.chaos import ChaosConfig
-from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.engine import ServeConfig, ServeEngine, SpecConfig
 from repro_torch.serve.request import SubmitRequest
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.utils.logging import get_logger
@@ -76,6 +83,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--cache-quant-int8", action="store_true",
                     help="store the KV cache as int8 with one fp32 scale per "
                          "position and head")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft this many tokens per "
+                         "round and verify them in one forward of the served "
+                         "model (0 = off; greedy only; poisson workload)")
+    ap.add_argument("--spec-draft", default="self",
+                    help="drafter: 'self' (the weights pruned to "
+                         "--spec-sparsity, kept block-sparse) or 'truncate:N' "
+                         "(the first N layers, reading the verifier's KV)")
+    ap.add_argument("--spec-sparsity", type=float, default=0.75,
+                    help="weight sparsity of the 'self' drafter (0.0 = an "
+                         "exact copy, full acceptance)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     ap.add_argument("--workload", default="batch", choices=("batch", "poisson"),
@@ -164,6 +182,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                  "block pool to overcommit)")
     if args.preempt_mode == "swap" and args.kv_layout != "paged":
         ap.error("--preempt-mode swap requires --kv-layout paged")
+    if args.spec_k < 0:
+        ap.error("--spec-k must be >= 0")
+    if args.spec_k and args.workload != "poisson":
+        ap.error("--spec-k only applies to the slot scheduler: pass --workload poisson")
+    if args.spec_k and args.temperature > 0:
+        ap.error("speculative decoding is greedy-only: --spec-k needs --temperature 0")
     return args
 
 
@@ -180,7 +204,8 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.inference_mode():
         params = arch.init_params(gen, device)
-    max_len = args.prompt_len + args.new_tokens + 1
+    # speculation writes up to spec_k rejected-tail tokens past the cursor
+    max_len = args.prompt_len + args.new_tokens + 1 + args.spec_k
     if args.workload == "poisson":
         # round up so max_len is whole blocks (paged) and whole prefill
         # chunks (chunked admission), both at once via the lcm
@@ -197,6 +222,8 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
         block_len=args.block_len,
         weight_quant=args.weight_quant,
         weight_quant_sparsity=args.weight_quant_sparsity,
+        spec=(SpecConfig(k=args.spec_k, draft=args.spec_draft,
+                         draft_sparsity=args.spec_sparsity) if args.spec_k else None),
     )
     return ServeEngine(arch, params, sc, device=device,
                        cache_quant_int8=args.cache_quant_int8)
@@ -284,9 +311,12 @@ def run_poisson(eng: ServeEngine, args: argparse.Namespace, draws=None, verbose:
         if sched.has_work():
             running = sched.run_segment()
             st = sched.stats
+            spec_note = ""
+            if sched.spec is not None and st["spec_steps"]:
+                spec_note = f" accepted={st['spec_emitted'] / st['spec_steps']:.2f}tok/step"
             say("segment %-3d running=%d queued=%d admitted=%d retired=%d "
-                      "steps=%d", st["segments"], running, len(sched.queue),
-                      st["admitted"], st["retired"], st["steps_total"])
+                "steps=%d%s", st["segments"], running, len(sched.queue),
+                st["admitted"], st["retired"], st["steps_total"], spec_note)
         elif next_arrival < args.n_requests:
             time.sleep(max(arrivals[next_arrival] - (time.perf_counter() - t0), 0.0))
     if eng.device.type == "cuda":
@@ -352,6 +382,20 @@ def report_poisson(eng: ServeEngine, useful: int, total: float, sched: Continuou
     if sched.chaos is not None and sched.chaos.enabled:
         log.info("chaos: %d forced exhaustions, %d injected cancels, %d slot failures",
                  st["chaos_exhausts"], st["chaos_cancels"], st["chaos_slot_failures"])
+    if sched.spec is not None:
+        hist = st["accepted_hist"]
+        total_steps = sum(hist.values())
+        mean_acc = (sum(n * c for n, c in hist.items()) / total_steps
+                    if total_steps else 0.0)
+        bars = " ".join(f"{n}tok:{hist[n]}" for n in sorted(hist))
+        log.info("speculative decode: k=%d draft=%s — %d draft-and-verify slot-steps, "
+                 "mean accepted length %.2f tok/step, acceptance histogram [%s], "
+                 "rounds predicated after a stop: %d", sched.spec.k, sched.spec.draft,
+                 total_steps, mean_acc, bars, st["steps_predicated"])
+        out.update(accepted_per_round=mean_acc, spec_steps=total_steps,
+                   steps_predicated=st["steps_predicated"])
+    elif st["spec_skip_reason"]:
+        log.info("speculative decode disabled: %s", st["spec_skip_reason"])
     return out
 
 

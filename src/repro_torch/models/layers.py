@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sonic_layers import serve_quant_apply
+from repro_torch.core.sonic_layers import draft_apply, serve_quant_apply
 from repro_torch.utils.rows import CPU_ROWS, DENSE_CUDA_ROWS, at_least_rows
 
 Params = dict[str, Any]
@@ -62,6 +62,9 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
         # dict was rewritten by ``quantize_serve_params``; the kernels
         # contract only the kept blocks against their per-block scales
         return serve_quant_apply(p, x)
+    if "bsvalues" in p:  # the self-drafter's block-sparse weights
+        # (``sparse_draft_params``), on ``block_sparse_matmul``
+        return draft_apply(p, x)
     w = p["kernel"].to(x.dtype)
     y = at_least_rows(lambda xx: xx @ w, x.reshape(-1, x.shape[-1]), _row_floor(x))
     return y.reshape(*x.shape[:-1], w.shape[-1])

@@ -46,18 +46,25 @@ prefill logits and is never eos-pinned; every subsequent token is
 eos-checked, and once a sequence has emitted ``eos_token`` all its later
 tokens are pinned to ``eos_token``.
 
-Slot programs (continuous batching, ``serve.scheduler``): the eight
-programs of the reference that do not speculate, over a ``SlotState`` (the
-slot cache or paged pool, ``tok`` / ``pos`` / ``done``, and the host policy
-uploaded before each segment: ``active``, ``limit``, ``stop_on_free``, the
-block table), every one updated in place at fixed addresses:
+Slot programs (continuous batching, ``serve.scheduler``): the twelve
+programs of the reference over a ``SlotState`` (the slot cache or paged
+pool, ``tok`` / ``pos`` / ``done``, and the host policy uploaded before each
+segment: ``active``, ``limit``, ``stop_on_free``, the block table), every
+one updated in place at fixed addresses:
 
-  prefill_slot[_paged]           one request (1, P) into one slot; a graph
-                                 per prompt length P
-  prefill_slots[_paged]          one chunk for up to W slots (W, Cb); a
-                                 graph per (W, Cb)
-  slot_segment[_while][_paged]   n_steps masked decode steps over every
-                                 slot (``slot_step``); a graph per n_steps
+  prefill_slot[_paged]              one request (1, P) into one slot; a
+                                    graph per prompt length P
+  prefill_slots[_paged]             one chunk for up to W slots (W, Cb); a
+                                    graph per (W, Cb)
+  slot_segment[_while][_paged]      n_steps masked decode steps over every
+                                    slot (``slot_step``)
+  slot_spec_segment[_while][_paged] n_steps draft-and-verify rounds
+                                    (``spec_step``, under ``ServeConfig.spec``)
+
+A segment program is one graph of one step (or round) per geometry,
+replayed once per step, which writes its emissions at the column a device
+counter in the program's input names and advances it: one capture serves
+every segment length.
 
 Every value the reference traces (slot ids, starts, last-token offsets,
 block-table rows, ``active`` / ``limit`` / ``stop_on_free``) is a device
@@ -68,45 +75,104 @@ there (every active slot done, or a slot just finished while
 ``stop_on_free`` is set); once it is set a step emits −1 and holds tok,
 pos and done, which is the token block and state of the reference's loop
 stopping at that step.  Such a step still rewrites each slot's k/v at its
-frozen position, with the values the next real step writes there.  The
-scheduler runs it for only as many steps as the slots' budgets allow
-(``ContinuousScheduler._while_steps``), so only an eos leaves predicated
-steps behind.  On the
-card each program is captured once per shape into one memory pool shared
-by all the engine's slot graphs (the first call at a shape warms up on a
-scratch copy of the state, then captures, then replays) and replayed
+frozen position, with the values the next real step writes there (a
+predicated round writes only positions from the frozen cursor on, which
+the next real window rewrites before it reads them).  The scheduler runs
+it for only as many steps as the slots' budgets allow
+(``ContinuousScheduler._while_steps``), so only an eos (or, speculating,
+a round that emits more than one token) leaves predicated steps behind;
+and the host reads the flag from the first round a budget could stop the
+segment (one round behind the card after it) and replays no more once it
+is set.
+On the card each program is captured once per shape into one memory pool
+shared by all the engine's slot graphs (the first call at a shape warms up
+on a scratch copy of the state, then captures, then replays) and replayed
 after; with ``loop="python"`` and on the CPU they run eagerly.  A slot
 state belongs to the engine, one per (n_slots, n_blocks): a second
 scheduler of the same geometry takes it over (with its graphs) and the
 first may not run again.
+
+Speculative decoding (``ServeConfig.spec = SpecConfig(k, draft=…)``, the
+reference's): each segment step is a round that drafts k tokens with a
+drafter derived from the served weights, verifies them in one
+``decode_chunk`` window of the served model over ``[tok, d_1 … d_k]`` at
+``pos … pos+k``, and emits the longest matching prefix plus the
+verifier's token (``sampling.spec_accept``); rollback is cursor
+truncation.  The drafters: ``"self"``, the unquantized weights pruned to
+``draft_sparsity`` and kept block-sparse in the compute type
+(``core.sonic_layers.sparse_draft_params``, on ``block_sparse_matmul``),
+and ``"truncate:N"``, the served model's first N layers drafting from the
+verifier's own cache (its leaves' first N layers, views: its k/v land in
+the verifier's cache at ``pos … pos+k−1``, which the window rewrites
+before it reads them).  Greedy only; the window must fit the
+decode attention's padded query rows (k + 1 ≤ 16) and, paged, a slot's
+scratch block (k < block_len).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core.sonic_layers import quantize_serve_params
+from repro_torch.core.sonic_layers import (quantize_serve_params, sparse_draft_params,
+                                           truncated_draft_params)
 from repro_torch.kernels import counters
 from repro_torch.models import registry
+from repro_torch.models.layers import DECODE_QUERY_ROWS
 from repro_torch.models.registry import Arch
-from repro_torch.serve.sampling import sample_token
+from repro_torch.serve.sampling import sample_token, spec_accept
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("serve")
 
 LOOPS = ("scan", "while", "python")
 KV_LAYOUTS = ("dense", "paged")
 # "while": decode steps replayed between two host reads of ``done``
 WHILE_CHECK_STEPS = 8
-# the reference's slot programs; the four ``slot_spec_*`` (speculative
-# decoding) are not ported yet and stay at 0 in the counters
+# the reference's slot programs
 SLOT_PROGRAMS = ("prefill_slot", "prefill_slots", "slot_segment",
                  "slot_segment_while", "prefill_slot_paged",
                  "prefill_slots_paged", "slot_segment_paged",
                  "slot_segment_while_paged", "slot_spec_segment",
                  "slot_spec_segment_while", "slot_spec_segment_paged",
                  "slot_spec_segment_while_paged")
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding, the reference's: draft ``k`` tokens per step
+    with a drafter derived from the served weights, verify them in one
+    ``decode_chunk`` forward of the served model, emit the longest matching
+    prefix (and the verifier's next token), roll the cursor back over the
+    rest.
+
+    ``draft``: ``"self"`` (the unquantized weights block-pruned to
+    ``draft_sparsity``, with a ``draft_clusters``-entry codebook when > 0;
+    ``draft_sparsity=0.0`` is an exact copy) or ``"truncate:N"`` (the
+    served model's first N layers and its final norm and LM head, reading
+    the verifier's KV cache).  Greedy only: acceptance is exact match, so
+    the emitted stream is plain decoding's."""
+
+    k: int = 4
+    draft: str = "self"  # "self" | "truncate:N"
+    draft_sparsity: float = 0.75
+    draft_clusters: int = 0  # 0 ⇒ no codebook
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"spec k must be >= 1, got {self.k}")
+        if not 0.0 <= self.draft_sparsity < 1.0:
+            raise ValueError(f"draft_sparsity must be in [0, 1), got {self.draft_sparsity}")
+        if self.draft != "self" and not (
+                self.draft.startswith("truncate:")
+                and self.draft.split(":", 1)[1].isdigit()
+                and int(self.draft.split(":", 1)[1]) >= 1):
+            raise ValueError(f"draft must be 'self' or 'truncate:N', got {self.draft!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +188,10 @@ class ServeConfig:
     # (``init_paged_cache``; ``generate`` serves the dense cache either way)
     kv_layout: str = "dense"  # "dense" | "paged"
     block_len: int = 16
+    # speculative decoding for the continuous scheduler; None = one token
+    # per step.  Families without chunk-resume fall back with
+    # ``engine.spec_skip_reason``
+    spec: SpecConfig | None = None
     # "int8" rewrites every linear projection into int8 block-sparse form;
     # ``weight_quant_sparsity`` > 0 also block-prunes (balanced top-|L1|,
     # the SONIC C1 structure); block=None picks the largest power-of-two
@@ -132,6 +202,27 @@ class ServeConfig:
     # run the scheduler's allocator / table / commitment invariant checks
     # at the end of every segment (host dicts only, never the device)
     debug_invariants: bool = False
+
+
+@contextlib.contextmanager
+def no_gc():
+    """No garbage collection inside the block (the collector's state
+    restored after): wrap a CUDA graph capture in it, since a collected
+    cycle may hold another graph, and destroying a graph invalidates the
+    capture in progress."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _has_kernels(tree) -> bool:
+    """Whether a param tree holds unquantized ``"kernel"`` leaves."""
+    return isinstance(tree, dict) and ("kernel" in tree or any(
+        _has_kernels(v) for v in tree.values()))
 
 
 def _to_device(tree, device: torch.device):
@@ -165,7 +256,8 @@ class _Graph:
 @dataclasses.dataclass
 class _Program:
     """One slot program at one shape: its input buffer (what the host fills
-    before a run), its output (the graph's, or the last eager run's) and,
+    before a run), its output (the graph's, or the last eager run's; a
+    round program's is a buffer it keeps, written a column per round) and,
     on the card, its graph."""
 
     inp: torch.Tensor
@@ -248,16 +340,14 @@ class ServeEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: pass device='cpu' to serve "
                                "on the CPU")
-        params = _to_device(params, self.device)
+        raw = params = _to_device(params, self.device)  # raw: the "self" drafter's source
         if sc.weight_quant == "int8":
             params = quantize_serve_params(params, sparsity=sc.weight_quant_sparsity,
                                            block=sc.weight_quant_block)
         self.arch, self.params, self.sc, self.cfg = arch, params, sc, arch.cfg
         self.cache_quant_int8 = cache_quant_int8
         self.graphs = sc.loop != "python" and self.device.type == "cuda"
-        # speculative decoding is not ported yet: the scheduler reads these
-        self.spec = None
-        self.spec_skip_reason = ""
+        self._resolve_drafter(raw)
         names = ("prefill", "decode", *SLOT_PROGRAMS)
         self.trace_counts: dict[str, int] = dict.fromkeys(names, 0)  # captures
         self.capture_seconds: dict[str, float] = dict.fromkeys(names, 0.0)
@@ -267,12 +357,57 @@ class ServeEngine:
         # them into their one shared pool
         self.slot_eager_runs = 0
         self.slot_graph_bytes = 0
+        self.slot_graph_bytes_by_program = dict.fromkeys(SLOT_PROGRAMS, 0)
         self._slot_pool = None
         self._states: dict[int, _State] = {}
         self._slot_states: dict[tuple[int, int | None], SlotState] = {}
         self._prefills: dict[tuple[int, int], tuple[_Graph, torch.Tensor]] = {}
         self._decodes: dict[int, _Graph] = {}
         self._checked_contracts: set[str] = set()
+
+    def _resolve_drafter(self, raw: dict) -> None:
+        """``spec``, ``spec_skip_reason``, ``draft_params`` and ``draft_cfg``
+        from ``sc.spec``, as the reference resolves them: a family that
+        cannot chunk-resume falls back to plain decoding with the reason;
+        what cannot be served as asked raises ``ValueError``."""
+        sc = self.sc
+        self.spec, self.spec_skip_reason = sc.spec, ""
+        self.draft_params = self.draft_cfg = None
+        if sc.spec is None:
+            return
+        if sc.temperature > 0.0:
+            raise ValueError("speculative decoding is greedy-only: acceptance is exact "
+                             "match against the greedy verifier (temperature must be 0)")
+        reason = self.arch.spec_decode_skip_reason()
+        if reason:
+            self.spec, self.spec_skip_reason = None, reason
+            log.warning("speculative decoding disabled, falling back to plain decode: "
+                        "%s", reason)
+            return
+        k = sc.spec.k
+        if k + 1 > DECODE_QUERY_ROWS["cuda"]:
+            raise ValueError(f"spec.k {k}: the verify window's k + 1 rows must fit the "
+                             f"{DECODE_QUERY_ROWS['cuda']} query rows decode attention "
+                             f"pads to on the card")
+        if sc.kv_layout == "paged" and k >= sc.block_len:
+            raise ValueError(f"spec.k {k} must be < block_len {sc.block_len} (the "
+                             f"k+1-token verify window of a masked slot must fit its "
+                             f"scratch block)")
+        if sc.spec.draft == "self":
+            if not _has_kernels(raw.get("layers", {})):
+                raise ValueError("draft='self' prunes the unquantized weights: pass the "
+                                 "raw params (with 'kernel' leaves), not a quantized tree")
+            self.draft_cfg = self.cfg
+            self.draft_params = sparse_draft_params(
+                raw, sc.spec.draft_sparsity, num_clusters=sc.spec.draft_clusters,
+                dtype=getattr(torch, self.cfg.compute_dtype))
+        else:
+            n = int(sc.spec.draft.split(":", 1)[1])
+            if not 1 <= n <= self.cfg.n_layers:
+                raise ValueError(f"draft {sc.spec.draft!r}: the model has "
+                                 f"{self.cfg.n_layers} layers")
+            self.draft_cfg = self.cfg.replace(n_layers=n)
+            self.draft_params = truncated_draft_params(self.params, n)
 
     # ------------------------------------------------------------ the step
 
@@ -334,7 +469,7 @@ class ServeEngine:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=pool):
+        with no_gc(), torch.cuda.graph(graph, pool=pool):
             fn()
         launches = counters.diff(counters.snapshot(), before)
         counters.restore(before)  # a capture runs nothing
@@ -524,17 +659,86 @@ class ServeEngine:
         if prog.graph is None:
             warm = torch.Generator(device=self.device) if st.generator is not None else None
             body(st.scratch(warm), prog.inp)
-            if self._slot_pool is None:
-                self._slot_pool = torch.cuda.graph_pool_handle()
-            torch.cuda.empty_cache()  # as the capture does: count only what it adds
-            reserved = torch.cuda.memory_reserved(self.device)
             out = []
-            prog.graph = self._capture(name, lambda: out.append(body(st, prog.inp)),
-                                       st.generator, pool=self._slot_pool)
-            self.slot_graph_bytes += torch.cuda.memory_reserved(self.device) - reserved
+            prog.graph = self._capture_slot(name, st, lambda: out.append(body(st, prog.inp)))
             prog.out = out[0]
         self._replay(prog.graph)
         return prog.out.clone()
+
+    def _capture_slot(self, name: str, st: SlotState, fn: Callable[[], None]) -> _Graph:
+        """``fn`` captured into the slot graphs' shared pool, the device
+        memory the capture reserved counted in ``slot_graph_bytes`` (and by
+        program)."""
+        if self._slot_pool is None:
+            self._slot_pool = torch.cuda.graph_pool_handle()
+        torch.cuda.empty_cache()  # as the capture does: count only what it adds
+        reserved = torch.cuda.memory_reserved(self.device)
+        g = self._capture(name, fn, st.generator, pool=self._slot_pool)
+        grown = torch.cuda.memory_reserved(self.device) - reserved
+        self.slot_graph_bytes += grown
+        self.slot_graph_bytes_by_program[name] += grown
+        return g
+
+    def _run_rounds(self, st: SlotState, name: str, rounds: int, out_shape: tuple,
+                    body: Callable[[SlotState, torch.Tensor, torch.Tensor], None],
+                    first_check: int = 0) -> torch.Tensor:
+        """Run slot program ``name`` as ``rounds`` runs of one round
+        ``body(state, inp, out)``, which writes its column of ``out`` (a
+        buffer of ``out_shape`` kept with the program) where ``inp[0]``
+        says and advances it: eagerly on the CPU and under loop="python",
+        else replayed from one graph per geometry (captured at the first
+        call, after a warm-up on a scratch copy of the state).
+
+        ``first_check`` (while segments): the host waits for that many
+        rounds and reads whether the segment has stopped (``_running``);
+        after it, it reads each round's stop flag while the next round
+        runs, so the card is never left waiting on the host, and runs no
+        more rounds once the flag is set (one round at most runs past a
+        stop found this way).  Returns the columns of the rounds run, a
+        fresh tensor."""
+        self.call_counts[name] += 1
+        prog = st.programs.get((name, ()))
+        if prog is None:
+            prog = st.programs[(name, ())] = _Program(
+                torch.empty((1,), dtype=torch.long, device=self.device),
+                torch.full(out_shape, -1, dtype=torch.long, device=self.device))
+        start = np.zeros(1, np.int64)  # the first round's column
+        self._upload(prog.inp, start)
+        if not self.graphs:
+            if self.device.type == "cuda":
+                self.slot_eager_runs += 1
+
+            def run(n: int) -> None:
+                for _ in range(n):
+                    body(st, prog.inp, prog.out)
+        else:
+            if prog.graph is None:
+                warm = (torch.Generator(device=self.device) if st.generator is not None
+                        else None)
+                body(st.scratch(warm), prog.inp, prog.out)
+                self._upload(prog.inp, start)  # the warm-up advanced the column
+                prog.graph = self._capture_slot(
+                    name, st, lambda: body(st, prog.inp, prog.out))
+
+            def run(n: int) -> None:
+                self._replay(prog.graph, n)
+        ran = min(first_check, rounds) if first_check else rounds
+        run(ran)
+        if ran < rounds and bool(self._running(st)):
+            cuda = self.device.type == "cuda"
+            flag = torch.empty((), dtype=torch.bool, pin_memory=cuda)
+            read = torch.cuda.Event() if cuda else None
+            while ran < rounds:
+                flag.copy_(self._running(st), non_blocking=True)
+                if read is not None:
+                    read.record()
+                run(1)
+                ran += 1
+                if read is not None:
+                    read.synchronize()
+                if not bool(flag):
+                    break
+        return prog.out[:, :ran].clone()
 
     def _slot_step(self, st: SlotState, active: torch.Tensor, limit: torch.Tensor,
                    block_table: torch.Tensor | None, go: torch.Tensor | None) -> torch.Tensor:
@@ -565,38 +769,120 @@ class ServeEngine:
                      limit: np.ndarray, stop_on_free: bool = False,
                      block_table: np.ndarray | None = None) -> torch.Tensor:
         """``n_steps`` masked decode steps over every slot → the emitted
-        tokens (n_slots, n_steps), −1 where a slot was masked.  ``mode``
-        "while" stops (predicated, see the module docstring) when every
-        active slot is done, or a slot has finished and ``stop_on_free``."""
+        tokens of the steps run (n_slots, ≤ n_steps), −1 where a slot was
+        masked.  ``mode`` "while" stops (predicated, see the module
+        docstring) when every active slot is done, or a slot has finished
+        and ``stop_on_free``; the host stops replaying soon after
+        (``_segment``)."""
+        return self._segment(st, "slot_segment", self._slot_step, (), n_steps, mode, active,
+                             limit, stop_on_free, block_table)
+
+    def _segment(self, st: SlotState, base: str, step: Callable, width: tuple, n_steps: int,
+                 mode: str, active, limit, stop_on_free, block_table) -> torch.Tensor:
+        """A segment program: ``n_steps`` runs of one round ``step`` (each
+        emitting ``(n_slots, *width)``, up to ``width[0]`` tokens a slot),
+        one graph per geometry on the card.  Rounds past ``max_len`` are
+        not run: a live round advances a slot's cursor, so every active
+        slot is done by then.  A while segment's ``n_steps`` is the host's
+        bound on its tokens (``ContinuousScheduler._while_steps``), so no
+        budget stops it before round ceil(n_steps / width[0]), and the host
+        first reads its stop flag there (an eos may stop it sooner: with
+        an eos token, from the first round)."""
+        name = self._segment_name(base, mode)
+        self._upload_policy(st, active, limit, stop_on_free, block_table)
+        paged = self.sc.kv_layout == "paged"
+
+        def round_(s: SlotState, inp: torch.Tensor, out: torch.Tensor) -> None:
+            go = self._running(s) if mode == "while" else None
+            emitted = step(s, s.active, s.limit, s.block_table if paged else None, go)
+            col = inp[:1]
+            out.index_copy_(1, col, emitted[:, None])
+            col.add_(1)
+
+        first = 0
+        if mode == "while":
+            first = 1 if self.sc.eos_token >= 0 else -(-n_steps // (width[0] if width else 1))
+        return self._run_rounds(st, name, min(n_steps, self.sc.max_len),
+                                (st.n_slots, self.sc.max_len, *width), round_, first)
+
+    def _segment_name(self, base: str, mode: str) -> str:
         if mode not in ("scan", "while"):
             raise ValueError(f"mode must be 'scan' or 'while', got {mode!r}")
-        paged = self.sc.kv_layout == "paged"
-        name = ("slot_segment" + ("_while" if mode == "while" else "")
-                + ("_paged" if paged else ""))
+        return (base + ("_while" if mode == "while" else "")
+                + ("_paged" if self.sc.kv_layout == "paged" else ""))
+
+    def _upload_policy(self, st: SlotState, active, limit, stop_on_free, block_table) -> None:
         pol = np.zeros(st.policy.shape[0], np.int64)
         n = st.n_slots
         pol[:n], pol[n:2 * n], pol[2 * n] = active, limit, stop_on_free
-        if paged:
+        if self.sc.kv_layout == "paged":
             pol[2 * n + 1:] = np.asarray(block_table).reshape(-1)
         self._upload(st.policy, pol)
 
-        def body(s: SlotState, _inp: torch.Tensor) -> torch.Tensor:
-            act, lim = s.active, s.limit
-            bt = s.block_table if paged else None
-            out = torch.full((n, n_steps), -1, dtype=torch.long, device=self.device)
-            go = None
-            if mode == "while":
-                go = torch.ones((), dtype=torch.bool, device=self.device)
-                sof = s.stop_on_free
-            for i in range(n_steps):
-                if go is not None:
-                    running = (act & ~s.done).any()
-                    freed = (act & s.done).any()
-                    go = go & running & ~(sof & freed)
-                out[:, i] = self._slot_step(s, act, lim, bt, go)
-            return out
+    @staticmethod
+    def _running(s: SlotState) -> torch.Tensor:
+        """A while segment's loop condition on the device: some active slot
+        is not done, and no slot has finished while ``stop_on_free``."""
+        act = s.active
+        return (act & ~s.done).any() & ~(s.stop_on_free & (act & s.done).any())
 
-        return self._run_slot(st, name, (n_steps,), np.zeros(1, np.int64), body)
+    def _spec_step(self, st: SlotState, active: torch.Tensor, limit: torch.Tensor,
+                   block_table: torch.Tensor | None, go: torch.Tensor | None) -> torch.Tensor:
+        """One draft-and-verify round over every slot, in place (the
+        reference's ``spec_step``) → the emissions (n_slots, k+1), −1 after
+        each slot's accepted prefix and wherever it is masked.
+
+        Draft: k decode steps of the drafter from the verifier's cache (the
+        full-depth drafters thread the cache itself; ``truncate:N`` its
+        first N layers' views), writing at ``pos … pos+k−1``.  Verify: one
+        ``decode_chunk`` window of the served model over ``[tok, d_1 … d_k]``
+        at ``pos … pos+k``, then ``spec_accept``.  Rollback: ``pos`` advances
+        only over the accepted prefix; nothing past a cursor is read before
+        the next window rewrites it.  Masked slots (and, with ``go`` False,
+        all: a while segment that has stopped) hold tok, pos and done."""
+        sc, k = self.sc, self.spec.k
+        n_draft = self.draft_cfg.n_layers
+        live = active & ~st.done
+        if go is not None:
+            live = live & go
+        d_cache = (st.cache if n_draft == self.cfg.n_layers
+                   else {name: leaf[:n_draft] for name, leaf in st.cache.items()})
+        cur, window = st.tok, [st.tok]
+        for i in range(k):
+            dlogits, _ = self.arch.forward(self.draft_params, cfg=self.draft_cfg,
+                                           tokens=cur[:, None], cache=d_cache,
+                                           cache_pos=st.pos + i, block_table=block_table)
+            cur = torch.argmax(dlogits[:, 0], dim=-1)
+            window.append(cur)
+        window = torch.stack(window, dim=1)  # (n_slots, k+1)
+        logits, _ = self.arch.forward(self.params, tokens=window, cache=st.cache,
+                                      cache_pos=st.pos, block_table=block_table,
+                                      decode_chunk=True)
+        verify = torch.argmax(logits, dim=-1)
+        emitted, n_emit, last = spec_accept(window, verify, live, st.pos, limit,
+                                            sc.eos_token)
+        st.tok.copy_(torch.where(live, last, st.tok))
+        pos = st.pos + n_emit  # n_emit is 0 where not live
+        stop = pos >= limit
+        if sc.eos_token >= 0:
+            stop = stop | (last == sc.eos_token)
+        st.pos.copy_(pos)
+        st.done.copy_(st.done | (live & stop))
+        return emitted
+
+    def spec_segment(self, st: SlotState, n_steps: int, mode: str, active: np.ndarray,
+                     limit: np.ndarray, stop_on_free: bool = False,
+                     block_table: np.ndarray | None = None) -> torch.Tensor:
+        """``n_steps`` draft-and-verify rounds over every slot → the emitted
+        tokens of the rounds run (n_slots, ≤ n_steps, k+1), −1 after each
+        accepted prefix and where a slot was masked; "while" stops
+        (predicated) as ``slot_segment`` does."""
+        if self.spec is None:
+            raise ValueError("spec_segment needs ServeConfig.spec (and a family that "
+                             "can speculate)")
+        kp1 = self.spec.k + 1
+        return self._segment(st, "slot_spec_segment", self._spec_step, (kp1,), n_steps, mode,
+                             active, limit, stop_on_free, block_table)
 
     def prefill_slot(self, st: SlotState, prompt: np.ndarray, slot: int,
                      bt_row: np.ndarray | None = None) -> torch.Tensor:

@@ -48,8 +48,18 @@ ordinary decode segments, the host consuming the duplicates) or by swap
 next segment boundary; ``ChaosConfig`` injects seeded pool exhaustion,
 cancellations and slot failures.
 
+Speculative decoding (``ServeConfig.spec``): segments become
+draft-and-verify rounds (``ServeEngine.spec_segment``) emitting 1..k+1
+tokens per live slot per round, an (n_slots, segment_len, k+1) block whose
+per-round counts feed ``stats["accepted_hist"]`` and which flattens
+row-major into the per-slot stream the host consumes as before (the
+device's acceptance already enforces eos and budgets).  Requests need
+``spec.k`` positions of max_len headroom (and of mapped blocks, paged) for
+the rejected tail the cursor rollback truncates.
+
 Greedy outputs equal ``ServeEngine.generate``'s at B = 1 bit for bit, under
-either layout and either admission path, preempted or not.  Temperature
+either layout and either admission path, preempted or not, speculating or
+not.  Temperature
 sampling draws from one ``torch.Generator`` on the engine's device, seeded
 with ``seed`` and registered with every graph.
 """
@@ -178,10 +188,11 @@ class ContinuousScheduler:
                 "the tenant policy (serve/policy.py) is not ported yet: ROADMAP "
                 "Queue 1, the policy / HTTP item")
         self.policy = None
-        # speculative decoding is not ported yet (engine.spec is None); the
-        # block and headroom arithmetic keeps its spec_k = 0 terms
+        # speculative decoding: the engine resolved the drafter (or recorded
+        # why its family cannot speculate); segments become draft-and-verify
+        # rounds and requests need spec_k positions of headroom
         self.spec = engine.spec
-        self.spec_k = 0
+        self.spec_k = engine.spec.k if engine.spec is not None else 0
         # batched/chunked admission (prefill_chunk > 0): prompts are split
         # into prefill_chunk-sized chunks carried across admit rounds, the
         # final chunk padded up to a geometric bucket set (powers of two
@@ -314,11 +325,14 @@ class ContinuousScheduler:
             # real prefill tokens advanced per admit round (appended once
             # per round that prefilled anything)
             "prefill_tokens_per_round": [],
-            # speculative decoding (not ported yet: these stay at 0)
+            # speculative decoding (spec_* only grow when spec is active)
             "spec_skip_reason": engine.spec_skip_reason,
-            "spec_steps": 0,
-            "spec_emitted": 0,
-            "accepted_hist": {},
+            "spec_steps": 0,  # draft-and-verify rounds with >= 1 live slot-step
+            "spec_emitted": 0,  # tokens emitted by those slot-steps
+            "accepted_hist": {},  # tokens per live slot-step -> count
+            # while segments: steps (rounds) the device ran predicated off,
+            # after the segment's stop and before the host's next read of it
+            "steps_predicated": 0,
             # robustness: on-demand growth, preemption, cancellation
             "blocks_grown": 0,  # blocks mapped by per-segment growth
             "preemptions": 0,  # slots evicted mid-flight (pool or chaos)
@@ -727,10 +741,14 @@ class ContinuousScheduler:
                 f"prompt length {p.size} must be < max_len {max_len} "
                 f"(no cache positions left to generate into)"
             )
+        # speculative decoding needs spec_k positions of cache headroom: the
+        # verify window writes up to spec_k rejected-tail tokens past the
+        # cursor before rollback truncates them
         if p.size + sub.max_new_tokens + self.spec_k > max_len:
             raise ValueError(
                 f"prompt {p.size} + max_new {sub.max_new_tokens}"
-                f" exceeds max_len {max_len}"
+                + (f" + spec draft window {self.spec_k}" if self.spec_k else "")
+                + f" exceeds max_len {max_len}"
             )
         for name in ("ttft_deadline_s", "deadline_s"):
             d = getattr(sub, name)
@@ -1143,20 +1161,38 @@ class ContinuousScheduler:
         pending = bool(self.queue) or bool(self._prefill_start)
         n_steps = (self._while_steps(pending) if self.segment_mode == "while"
                    else self.segment_len)
-        toks = eng.slot_segment(
+        segment = eng.spec_segment if self.spec is not None else eng.slot_segment
+        toks = segment(
             self.state, n_steps, self.segment_mode, self.active,
             self.limit, stop_on_free=pending,
             block_table=self.block_table if self.paged else None)
         toks = toks.cpu().numpy()  # the only per-segment download
-        if n_steps < self.segment_len:  # the steps a while segment never takes
-            toks = np.pad(toks, ((0, 0), (0, self.segment_len - n_steps)),
-                          constant_values=-1)
+        ran = toks.shape[1]  # a while segment stops within a check of its stop
+        if ran < self.segment_len:  # the steps the segment never took
+            pad = [(0, 0), (0, self.segment_len - ran)] + [(0, 0)] * (toks.ndim - 2)
+            toks = np.pad(toks, pad, constant_values=-1)
         self.stats["segments"] += 1
-        # every executed step has ≥1 live emission (a while segment stops
-        # instead of running fully-masked steps)
-        n_exec = (int((toks >= 0).any(axis=0).sum())
+        if self.spec is not None:
+            # (n_slots, S, k+1): per-step emission counts feed the
+            # accepted-length stats, then the block flattens row-major into
+            # the chronological per-slot stream the host loop below consumes
+            per_step = (toks >= 0).sum(axis=2)  # (n_slots, S)
+            live_step = per_step > 0
+            self.stats["spec_steps"] += int(live_step.sum())
+            self.stats["spec_emitted"] += int(per_step[live_step].sum())
+            hist = self.stats["accepted_hist"]
+            for n, c in zip(*np.unique(per_step[live_step], return_counts=True)):
+                hist[int(n)] = hist.get(int(n), 0) + int(c)
+            toks = toks.reshape(toks.shape[0], -1)
+        else:
+            live_step = toks >= 0
+        # every executed step has ≥1 live emission (a while segment's steps
+        # after its stop are predicated, emitting nothing)
+        n_exec = (int(live_step.any(axis=0).sum())
                   if self.segment_mode == "while" else self.segment_len)
-        live_counts = (toks >= 0).sum(axis=1)
+        live_counts = live_step.sum(axis=1)  # live steps per slot
+        if self.segment_mode == "while":
+            self.stats["steps_predicated"] += ran - n_exec
         self.stats["steps_total"] += n_exec
         eos = eng.sc.eos_token
         now = self.clock()
@@ -1208,9 +1244,15 @@ class ContinuousScheduler:
         active slot finishes after ``max_new − derived`` live steps, and
         the segment stops at the first finish (``stop_on_free``) or the
         last.  Only an eos stops it sooner; that the device predicates.
-        So the program runs this many steps instead of ``segment_len``
-        with the tail predicated off (the same token block, −1 past its
-        stop; on the card, no device time spent on steps never taken)."""
+        A speculative round emits at least one token per live slot, so the
+        bound holds for rounds too, loose by up to (k+1)×.  The engine
+        reads the device's stop flag from the first round a budget could
+        end the segment, one round behind the card after it, and replays
+        no more once it is set; the steps (rounds) it ran past the stop
+        are predicated and counted in ``stats["steps_predicated"]``.
+        So the program runs at most this many steps instead of
+        ``segment_len`` (the same token block, −1 past its stop; on the
+        card, no device time spent on steps never taken)."""
         left = [req.max_new_tokens - self._dev_tokens(slot, req)
                 for slot, req in enumerate(self.slots)
                 if req is not None and self.active[slot]]

@@ -7,9 +7,9 @@ On the card, at the reduced tinyllama (2 layers, d_model 64) in the served
 bf16 compute with int8 weights at the automatic blocks (the tensor-core
 routes):
 
-* each slot program is captured once per shape across segments (a while
-  segment per length the slots' budgets allow), and a second scheduler of
-  the same geometry captures nothing;
+* each slot program is captured once per shape across segments (a
+  segment program, one step, once whatever the segments' lengths), and a
+  second scheduler of the same geometry captures nothing;
 * graph ≡ eager (``loop="python"``) bit for bit for every program — the
   tokens, tok / pos / done and the cache — greedy and sampled from the
   scheduler's generator, dense and paged, scan and while, per-request and
@@ -95,9 +95,9 @@ def test_cuda_slot_programs_captured_once_per_shape(cuda, params, layout, mode):
     news = [5 + i for i in range(len(lens))]
     _, sched = _serve(eng, _prompts(lens), news, n_slots=2, segment_len=3, segment_mode=mode)
     assert sched.stats["segments"] >= 2
-    # scan: one segment length; while: one per length the budgets allow
+    # one segment program: one step, whatever the segment's length
     shapes = {shape for name, shape in sched.state.programs if name == seg}
-    assert eng.trace_counts[seg] == len(shapes) and (mode == "while" or shapes == {(3,)})
+    assert eng.trace_counts[seg] == 1 and shapes == {()}
     assert eng.call_counts[seg] == sched.stats["segments"]
     assert eng.trace_counts["prefill_slot" + sfx] == 2  # one per prompt length
     assert eng.call_counts["prefill_slot" + sfx] == len(lens)

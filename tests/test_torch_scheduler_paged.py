@@ -111,10 +111,11 @@ def test_paged_slot_programs_counted(sides):
     runs = {k: v - before[k] for k, v in eng.call_counts.items()}
     assert runs["prefill_slot_paged"] == 5 and runs["prefill_slot"] == 0
     assert runs["slot_segment_paged"] == sched.stats["segments"] >= 2
-    # one program per prompt length and one segment program in the state
+    # one program per prompt length and one segment program (one step,
+    # whatever the segment's length) in the state
     shapes = sorted(k for k in sched.state.programs)
     assert shapes == [("prefill_slot_paged", (4,)), ("prefill_slot_paged", (7,)),
-                      ("slot_segment_paged", (3,))]
+                      ("slot_segment_paged", ())]
 
 
 def test_paged_pool_serves_more_context_than_it_holds(sides):
