@@ -154,7 +154,9 @@ Phases, in order; any failure exits non-zero before the last line:
      (scan / while × dense / paged), ``self`` (the seed's raw weights pruned
      to 0.75 and kept block-sparse in bf16, on block_sparse_matmul) and
      ``truncate:22`` (the whole model, whose drafts must all be accepted
-     but at budget edges) — and k = 2 ``truncate:1`` with int8 KV, paged
+     but at budget edges, at k = 4 and at k = 16: windows of 17 rows, the
+     queries padded to 32, 68 rows a window) — and k = 2 ``truncate:1``
+     with int8 KV, paged
      overcommit with recompute (preemption must happen) and chunked
      admission, each request equal to its own ``generate`` at B = 1; the
      counters zeroed just before each run and read just after (the int8
@@ -166,11 +168,33 @@ Phases, in order; any failure exits non-zero before the last line:
      requests at 100 requests/s, dense while, plain and the three k = 4
      drafters: tok/s, latency and TTFT (median, min, max of 3), accepted
      tokens per round, predicated rounds, captures and the busy time.
+ 15. the serving front door (``phase_http``, after speculative decoding):
+     ``serve.http.FrontDoor`` in this process on 127.0.0.1 port 0 over a
+     ``ContinuousScheduler`` of the served weights (paged, n_slots 4, while
+     segments of 8, the trace on, tenants acme:3 and hobby:1 under the
+     default priority classes and an ``SloConfig``), the scheduler on the
+     front door's worker thread.  16 requests from ``_poisson_draws``
+     (prompts 4–64, 4–32 new tokens) as concurrent SSE clients (the port's
+     client helpers), each ending in ``done`` with its streamed tokens
+     equal to its final list and to ``generate`` at B = 1, beside the
+     offline scheduler on the same requests (tok/s, p50 / p95 TTFT and
+     latency of each), heartbeats while segments run, the counters zeroed
+     just before and read just after (the int8 pair launched, on the
+     tensor cores), the card's busy time against the trace's priced FLOPs
+     and bytes (a model against the card), the photonic model's J/token,
+     admissions per tenant and the brownout trajectory; then a client that
+     disconnects mid-stream (slot and blocks back within one segment), a
+     burst over ``max_pending`` (429 + Retry-After before admission; the
+     drain predictor against the measured drain) and a graceful stop with
+     streams in flight (all complete); the graphs captured on the main
+     thread and replayed on the worker, and on a fresh engine captured on
+     the worker and replayed on the main thread; no slot program eager.
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import gc
 import json
@@ -234,7 +258,15 @@ from repro_torch.serve.engine import (  # noqa: E402
     SpecConfig,
     no_gc,
 )
+from repro_torch.serve import http  # noqa: E402
+from repro_torch.serve.policy import (  # noqa: E402
+    DEFAULT_CLASSES,
+    SloConfig,
+    TenantPolicy,
+    TenantSpec,
+)
 from repro_torch.serve.scheduler import ContinuousScheduler  # noqa: E402
+from repro_torch.serve.trace import trace_energy  # noqa: E402
 from repro_torch.utils.tree import tree_param_count  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -1006,9 +1038,9 @@ def _int8_routes() -> dict:
     return {name: dict(kn["wrapper"].routes) for name, kn in KERNELS.items()}
 
 
-def _cont_engine(eng, layout="dense", quant=False, loop="scan"):
+def _cont_engine(eng, layout="dense", quant=False, loop="scan", trace=False):
     sc = dataclasses.replace(eng.sc, max_len=CONT_MAX_LEN, kv_layout=layout,
-                             block_len=CONT_BLOCK_LEN, loop=loop)
+                             block_len=CONT_BLOCK_LEN, loop=loop, trace=trace)
     return ServeEngine(eng.arch, eng.params, sc, device=eng.device, cache_quant_int8=quant)
 
 
@@ -1278,7 +1310,8 @@ def phase_speculative(eng, card: str) -> dict:
     ``generate`` at B = 1, under k = 4 drafters ``truncate:1`` (scan and
     while × dense and paged), ``self`` at sparsity 0.75 (block_sparse_matmul
     on bf16 values) and ``truncate:22`` (the whole model: every round but a
-    budget's last emits k + 1), and k = 2 ``truncate:1`` with int8 KV,
+    budget's last emits k + 1; also at k = 16, the decode queries padded to
+    32 rows), and k = 2 ``truncate:1`` with int8 KV,
     paged with overcommit 2.0 on ``CONT_SMALL_POOL`` blocks (recompute,
     preemption must happen) and chunked admission.  The counters zeroed
     just before each run and read just after: the int8 pair launched in
@@ -1302,6 +1335,7 @@ def phase_speculative(eng, card: str) -> dict:
                "truncate1_paged": _spec_engine(eng, SPEC_K, "truncate:1", "paged"),
                "self075_dense": _spec_engine(eng, SPEC_K, "self", raw=raw),
                "truncate22_dense": _spec_engine(eng, SPEC_K, full),
+               "k16_truncate22_dense": _spec_engine(eng, 16, full),
                "k2_int8_kv": _spec_engine(eng, 2, "truncate:1", quant=True),
                "k2_paged": _spec_engine(eng, 2, "truncate:1", "paged"),
                "k2_dense": _spec_engine(eng, 2, "truncate:1")}
@@ -1316,6 +1350,8 @@ def phase_speculative(eng, card: str) -> dict:
             ("truncate1_paged_while", "truncate1_paged", dict(segment_mode="while")),
             ("self075_dense_while", "self075_dense", dict(segment_mode="while")),
             ("truncate22_dense_while", "truncate22_dense", dict(segment_mode="while")),
+            ("k16_truncate22_dense_while", "k16_truncate22_dense",
+             dict(segment_mode="while")),
             ("k2_int8_kv", "k2_int8_kv", {}),
             ("k2_paged_recompute", "k2_paged", dict(n_blocks=CONT_SMALL_POOL, overcommit=2.0,
                                                      preempt_mode="recompute")),
@@ -1362,7 +1398,7 @@ def phase_speculative(eng, card: str) -> dict:
                                  f"bf16 launch on the tensor cores")
         if "overcommit" in kw and not st["preemptions"]:
             raise AssertionError(f"speculative {name}: no preemption")
-        if key == "truncate22_dense" and hist != _full_acceptance_hist(n_news, e.spec.k):
+        if e.spec.draft == full and hist != _full_acceptance_hist(n_news, e.spec.k):
             raise AssertionError(f"speculative {name}: the full-depth drafter had drafts "
                                  f"rejected: {hist}, want "
                                  f"{_full_acceptance_hist(n_news, e.spec.k)}")
@@ -1391,7 +1427,8 @@ def phase_speculative(eng, card: str) -> dict:
                                                  for d, r in per_round.items()}}
               for name in ("block_sparse_matmul", INT8_MATVEC, INT8_MATMUL)}
     extras["block_sparse_matmul"]["spec_draft_step"] = draft_step
-    for key in ("k2_int8_kv", "k2_paged", "k2_dense", "truncate1_paged", "truncate22_dense"):
+    for key in ("k2_int8_kv", "k2_paged", "k2_dense", "truncate1_paged", "truncate22_dense",
+                "k16_truncate22_dense"):
         del engines[key]
 
     args = _cont_args(32, 100.0, 16)
@@ -1449,6 +1486,349 @@ def phase_speculative(eng, card: str) -> dict:
               "device_kernel_launches": launches,
               "seconds": time.perf_counter() - t_config})
     return extras
+
+
+HTTP_REQUESTS = 16
+HTTP_TENANTS = {"acme": 3.0, "hobby": 1.0}
+HTTP_TTFT_DEADLINE_S = 5.0  # the interactive class's, which the SLO controller steers by
+HTTP_WAIT_S = 180.0  # the longest any step of the phase may wait: a hang fails the run
+
+
+def _http_sched(e) -> ContinuousScheduler:
+    """The front door's scheduler: tenants acme:3 and hobby:1, the default
+    priority classes (interactive given a TTFT deadline, which the SLO
+    controller needs) and the default ``SloConfig``; n_slots 4, while
+    segments of 8."""
+    classes = (dataclasses.replace(DEFAULT_CLASSES[0], ttft_deadline_s=HTTP_TTFT_DEADLINE_S),
+               *DEFAULT_CLASSES[1:])
+    policy = TenantPolicy(tenants={t: TenantSpec(weight=w) for t, w in HTTP_TENANTS.items()},
+                          classes=classes, slo=SloConfig())
+    return ContinuousScheduler(e, n_slots=4, segment_len=8, segment_mode="while",
+                               policy=policy)
+
+
+def _http_payloads(prompts, news) -> list[dict]:
+    """One payload per request: tenants round-robin, every fourth request
+    interactive (the others the tenants' default, standard)."""
+    tenants = list(HTTP_TENANTS)
+    return [{"prompt": [int(t) for t in p], "max_new_tokens": int(n),
+             "tenant": tenants[i % len(tenants)],
+             **({"priority": "interactive"} if i % 4 == 0 else {})}
+            for i, (p, n) in enumerate(zip(prompts, news))]
+
+
+async def _http_stream(port: int, payload: dict) -> dict:
+    """One SSE client (the port's helpers): status, streamed tokens, the
+    terminal event's body, heartbeats seen, TTFT and latency (client wall
+    clock), and the Retry-After a 429 carried."""
+    t0 = time.perf_counter()
+    reader, writer, status, headers = await http.open_generate("127.0.0.1", port, payload)
+    out = {"status": status, "tokens": [], "heartbeats": 0, "body": None, "ttft_s": None,
+           "retry_after": headers.get("retry-after")}
+    try:
+        if status != 200:
+            n = int(headers.get("content-length", "0") or 0)
+            out["body"] = json.loads(await reader.readexactly(n)) if n else None
+            return out
+        while True:
+            ev = await http.read_sse_event(reader)
+            if ev is None:
+                break
+            kind = ev.get("event")
+            if kind == "token":
+                out["tokens"].append(ev["data"]["token"])
+                if out["ttft_s"] is None:
+                    out["ttft_s"] = time.perf_counter() - t0
+            elif kind == "heartbeat":
+                out["heartbeats"] += 1
+            elif kind in ("done", "error"):
+                out["body"] = ev["data"] if kind == "done" else {"error": ev["data"]}
+                break
+    finally:
+        out["t_end"] = time.perf_counter()
+        out["latency_s"] = out["t_end"] - t0
+        writer.close()
+    return out
+
+
+def _clean(outs: list[dict], payloads: list[dict], want: list[list[int]], what: str) -> None:
+    """Every stream ended in ``done`` with finish "length", its streamed
+    tokens its final list, and that list ``generate``'s."""
+    for i, (o, p, w) in enumerate(zip(outs, payloads, want)):
+        body = o["body"] or {}
+        if not (o["status"] == 200 and body.get("finish_reason") == "length"
+                and o["tokens"] == body.get("tokens") == w):
+            raise AssertionError(f"http {what}: request {i} ({p['tenant']}) status "
+                                 f"{o['status']} finish {body.get('finish_reason')}, "
+                                 f"{sum(a != b for a, b in zip(o['tokens'], w))} tokens of "
+                                 f"{len(w)} differ from generate")
+
+
+def _pcts(values: list[float]) -> dict:
+    xs = sorted(values)
+    return {"p50": statistics.median(xs), "p95": xs[min(len(xs) - 1, int(0.95 * len(xs)))]}
+
+
+def _trace_by_phase(events) -> dict:
+    out: dict[str, dict] = {}
+    for e in events:
+        row = out.setdefault(e.phase, {"launches": 0, "tokens": 0, "flops": 0.0,
+                                       "hbm_bytes": 0.0})
+        row["launches"] += 1
+        row["tokens"] += e.tokens
+        row["flops"] += e.flops
+        row["hbm_bytes"] += e.hbm_bytes
+    return out
+
+
+async def _http_session(sched, payloads, want, seg_s: float, probe: bool) -> dict:
+    """A front door on 127.0.0.1, port 0, over ``sched``: the 16 concurrent
+    clients, and with ``probe`` the disconnect, the burst over max_pending
+    and the graceful drain; returns what was measured.  ``seg_s``: one
+    segment's wall on this card, half of which is the heartbeat."""
+    fd = http.FrontDoor(sched, http.HttpConfig(heartbeat_s=seg_s / 2, drain_timeout_s=120.0))
+    await fd.start()
+    out: dict = {"heartbeat_s": seg_s / 2}
+    stopped = False
+    try:
+        async def clients(what: str) -> tuple[list[dict], float]:
+            """The 16 clients at once → their outcomes (held clean) and their
+            wall (from their own clocks, so without a profiler's start and
+            stop)."""
+            t0 = time.perf_counter()
+            got = await asyncio.wait_for(asyncio.gather(
+                *[_http_stream(fd.port, p) for p in payloads]), HTTP_WAIT_S)
+            _clean(got, payloads, want, what)
+            return got, max(o["t_end"] for o in got) - t0
+
+        _zero_counts()
+        out["outs"], out["wall_s"] = await clients("concurrent clients")
+        out["counts"] = counters.snapshot()
+        if not probe:
+            return out
+        # the same again under torch.profiler (which slows the host): the
+        # card's busy time against that run's wall and the trace's pricing
+        n_events = len(sched.trace.events)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, out["profiled_wall_s"] = await clients("profiled clients")
+        out["device_busy_ms"], out["device_kernel_launches"] = _device_busy(prof)
+        out["trace_by_phase"] = _trace_by_phase(sched.trace.events[n_events:])
+        # a client that vanishes mid-stream: its slot and blocks come back
+        # at the next segment boundary
+        short = min(range(len(payloads)), key=lambda i: len(payloads[i]["prompt"]))
+        long = {**payloads[short], "max_new_tokens": CONT_MAX_LEN - len(payloads[short]["prompt"])}
+        cancelled0 = sched.stats["cancelled"]
+        reader, writer, status, _ = await http.open_generate("127.0.0.1", fd.port, long)
+        got = 0
+        while got < 2:
+            ev = await asyncio.wait_for(http.read_sse_event(reader), HTTP_WAIT_S)
+            if ev is None:
+                raise AssertionError("http disconnect: the stream ended early")
+            got += ev.get("event") == "token"
+        seg0 = sched.stats["segments"]
+        writer.close()
+        deadline = time.perf_counter() + HTTP_WAIT_S
+        while sched.stats["cancelled"] == cancelled0 or any(sched.slots):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"http disconnect: not reclaimed: {sched.stats}")
+            await asyncio.sleep(0.001)
+        out["disconnect"] = {"status": status, "segments_to_reclaim":
+                             sched.stats["segments"] - seg0,
+                             "blocks_reclaimed": sched.stats["blocks_reclaimed_cancel"],
+                             "free_blocks": [sched.allocator.n_free, sched.allocator.capacity]}
+        if (out["disconnect"]["segments_to_reclaim"] > 2 or not sched.stats[
+                "blocks_reclaimed_cancel"] or sched.allocator.n_free != sched.allocator.capacity):
+            raise AssertionError(f"http disconnect: {out['disconnect']}")
+        # a burst over max_pending: 429 + Retry-After before admission; the
+        # worker's drain prediction (what a Retry-After then carries, above
+        # its 1 s floor), first made after the burst's first segment,
+        # against the time the accepted streams then take to finish
+        fd.cfg.max_pending = 2
+        rid0 = sched._next_rid
+        predicted: dict = {}
+        clients = asyncio.ensure_future(asyncio.gather(
+            *[_http_stream(fd.port, p) for p in payloads[:12]]))
+        deadline = time.perf_counter() + HTTP_WAIT_S
+        while not clients.done():
+            if time.perf_counter() > deadline:
+                raise AssertionError("http burst: the clients did not finish")
+            if not predicted and fd.worker._drain_s is not None:
+                predicted.update(drain_s=fd.worker._drain_s, t=time.perf_counter())
+            await asyncio.sleep(0.0005)
+        burst = clients.result()
+        fd.cfg.max_pending = http.HttpConfig().max_pending
+        ok = [i for i, o in enumerate(burst) if o["status"] == 200]
+        rejected = [o for o in burst if o["status"] == 429]
+        _clean([burst[i] for i in ok], [payloads[i] for i in ok], [want[i] for i in ok],
+               "burst")
+        if not rejected or sched._next_rid - rid0 != len(ok) or any(
+                int(o["retry_after"]) < 1 or o["body"]["retry_after_s"] <= 0 for o in rejected):
+            raise AssertionError(f"http burst: {len(rejected)} rejected of 12, "
+                                 f"{sched._next_rid - rid0} admitted, "
+                                 f"{[o['body'] for o in rejected]}")
+        out["burst"] = {"clients": 12, "max_pending": 2, "accepted": len(ok),
+                        "rejected_429": len(rejected),
+                        "retry_after_header_s": sorted({int(o["retry_after"])
+                                                        for o in rejected}),
+                        "retry_after_s": [o["body"]["retry_after_s"] for o in rejected],
+                        "predicted_drain_s": predicted.get("drain_s"),
+                        "measured_drain_s": (max(burst[i]["t_end"] for i in ok)
+                                             - predicted["t"]) if predicted else None}
+        # graceful drain: stop with streams in flight; every one completes
+        admitted0 = sched.stats["admitted"]
+        tasks = [asyncio.ensure_future(_http_stream(fd.port, p)) for p in payloads[12:]]
+        deadline = time.perf_counter() + HTTP_WAIT_S
+        while sched.stats["admitted"] == admitted0:
+            if time.perf_counter() > deadline:
+                raise AssertionError("http drain: nothing admitted")
+            await asyncio.sleep(0.001)
+        await fd.stop()
+        stopped = True
+        drained = await asyncio.wait_for(asyncio.gather(*tasks), HTTP_WAIT_S)
+        _clean(drained, payloads[12:], want[12:], "drain")
+        if fd.worker.is_alive() or fd.worker.error is not None:
+            raise AssertionError(f"http drain: worker alive or failed: {fd.worker.error}")
+        out["drain"] = {"in_flight": len(tasks), "completed": len(drained)}
+        out["stats"] = fd.stats
+        return out
+    finally:
+        if not stopped:
+            await fd.stop()
+        if fd.worker is not None and fd.worker.error is not None:
+            raise AssertionError(f"http: the scheduler worker failed: {fd.worker.error!r}")
+
+
+def phase_http(eng, card: str) -> dict:
+    """The serving front door (``serve.http.FrontDoor``) at full width: the
+    served int8 weights, paged KV (block_len 16), n_slots 4, the trace on,
+    tenants acme:3 and hobby:1 under the default priority classes and an
+    ``SloConfig``, on 127.0.0.1 port 0 in this process; the scheduler runs
+    on the front door's worker thread, its slot programs CUDA graphs.
+
+    16 requests from ``launch.serve._poisson_draws`` (seed 0, prompts 4–64,
+    4–32 new tokens), every fourth interactive, each request's tokens
+    ``generate``'s at B = 1 on the same engine.  First the offline
+    scheduler on the main thread (its graphs captured there, then a second
+    run timed), then the same requests as 16 concurrent SSE clients
+    through the front door, the worker replaying those graphs: every
+    stream ends in ``done`` with its streamed tokens its final list,
+    heartbeats sent while segments run (``heartbeat_s`` half a segment's
+    wall), the counters zeroed just before and read just after
+    (the int8 pair launched, on the tensor cores); then the 16 again under
+    torch.profiler for the card's busy time against their wall and the
+    trace's priced work.  Then a client that
+    disconnects mid-stream (its slot and blocks back within a segment), a
+    burst of 12 over ``max_pending`` 2 (429 + Retry-After before admission;
+    the drain predictor's prediction against the measured drain), and a
+    graceful stop with 4 streams in flight (all complete).  Last, a fresh
+    engine whose graphs the worker captures: the 16 clients again, then
+    the offline scheduler on the main thread replaying them.  No slot
+    program runs eagerly."""
+    t_phase = time.perf_counter()
+    args = _cont_args(HTTP_REQUESTS, 100.0, 8)
+    _, p_lens, n_news, prompts = serve._poisson_draws(args, eng.cfg.vocab_size)
+    payloads = _http_payloads(prompts, n_news)
+    e = _cont_engine(eng, "paged", trace=True)
+    want = [e.generate(torch.from_numpy(p)[None].to(e.device), int(n))[0].tolist()
+            for p, n in zip(prompts, n_news)]
+
+    def offline(engine):
+        sched = _http_sched(engine)
+        t0 = time.perf_counter()
+        handles = [sched.submit(p["prompt"], p["max_new_tokens"], tenant=p["tenant"],
+                                priority=p.get("priority")) for p in payloads]
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [h.tokens for h in handles]
+        if got != want or not all(h.done for h in handles):
+            raise AssertionError(f"http offline: {sum(g != w for g, w in zip(got, want))} "
+                                 f"requests differ from generate")
+        return sched, handles, wall
+
+    offline(e)  # captures the graphs on the main thread
+    off_sched, off_handles, off_wall = offline(e)  # timed, replaying them
+    seg_s = off_wall / off_sched.stats["segments"]
+    captured = dict(e.trace_counts)
+    sched = _http_sched(e)
+    a = asyncio.run(_http_session(sched, payloads, want, seg_s, probe=True))
+    counts = a.pop("counts")
+    launched = {n: c for n, (c, _) in counts.items() if c}
+    routes = {n: r for n, (c, r) in counts.items() if c}
+    if any(launched.get(n, 0) == 0 for n in KERNELS) or any(
+            r.get(build.CUDA_CORES, 0) for r in routes.values()):
+        raise AssertionError(f"http: launches {launched}, routes {routes}, want the int8 pair "
+                             f"launched, every launch on the tensor cores")
+    if sum(o["heartbeats"] for o in a["outs"]) == 0:
+        raise AssertionError("http: no heartbeat while segments ran")
+    tokens = sum(len(o["tokens"]) for o in a["outs"])
+    tr = sched.trace
+    energy = trace_energy(tr, e.cfg, weight_sparsity=serve.TRACE_WEIGHT_SPARSITY,
+                          act_sparsity=serve.TRACE_ACT_SPARSITY, platforms=("SONIC",))
+    by_phase = a["trace_by_phase"]
+    busy_ms = a.get("device_busy_ms") or None
+    brownout = [(ev.segment, ev.steps) for ev in tr.events if ev.phase == "brownout"]
+    out = {"phase": "http", "card": card, "requests": HTTP_REQUESTS,
+           "prompt_lens": [int(x) for x in p_lens], "new_tokens": [int(x) for x in n_news],
+           "tenants": HTTP_TENANTS, "n_slots": 4, "kv_layout": "paged",
+           "block_len": CONT_BLOCK_LEN, "max_len": CONT_MAX_LEN, "segment_len": 8,
+           "heartbeat_s": a["heartbeat_s"],
+           "http": {"tok_s": tokens / a["wall_s"], "wall_s": a["wall_s"], "tokens": tokens,
+                    "ttft_s": _pcts([o["ttft_s"] for o in a["outs"]]),
+                    "latency_s": _pcts([o["latency_s"] for o in a["outs"]]),
+                    "heartbeats": sum(o["heartbeats"] for o in a["outs"])},
+           "offline": {"tok_s": sum(len(h.tokens) for h in off_handles) / off_wall,
+                       "wall_s": off_wall,
+                       "ttft_s": _pcts([h.ttft for h in off_handles]),
+                       "latency_s": _pcts([h.latency for h in off_handles]),
+                       "segment_ms": 1e3 * seg_s},
+           "launches": launched, "routes": routes,
+           "admitted_by_tenant": {t: r["admitted"] for t, r in
+                                  sched.policy.snapshot().items()},
+           "served_tokens_by_tenant": {t: r["served_tokens"] for t, r in
+                                       sched.policy.snapshot().items()},
+           "brownout_trajectory": brownout, "brownout_level": sched.policy.brownout_level,
+           "slo": sched.policy.slo_snapshot(),
+           "trace_concurrent_clients": {
+               "by_phase": by_phase,
+               "flops": sum(r["flops"] for r in by_phase.values()),
+               "hbm_bytes": sum(r["hbm_bytes"] for r in by_phase.values()),
+               "analytic_s_at_peak": max(
+                   sum(r["flops"] for r in by_phase.values()) / BF16_TENSOR_FLOPS,
+                   sum(r["hbm_bytes"] for r in by_phase.values()) / HBM_BYTES_PER_S),
+               "device_busy_ms": busy_ms, "profiled_wall_s": a["profiled_wall_s"],
+               "device_idle_share": (1 - busy_ms / (1e3 * a["profiled_wall_s"])
+                                     if busy_ms else None),
+               "device_kernel_launches": a.get("device_kernel_launches"),
+               "note": "the trace's priced FLOPs and bytes (analytic model) beside the "
+                       "card's measured busy time: a model-versus-card comparison"},
+           "trace_totals_session": tr.summary(),
+           "photonic_j_per_token": {
+               "SONIC": energy["platforms"]["SONIC"]["j_per_token"],
+               "source": PHOTONIC},
+           "disconnect": a["disconnect"], "burst": a["burst"], "drain": a["drain"],
+           "front_door": a["stats"]}
+    if e.trace_counts != captured:
+        raise AssertionError(f"http: the front door captured what the offline run had: "
+                             f"{captured} -> {e.trace_counts}")
+    # the other order: a fresh engine whose graphs the worker captures, the
+    # main thread replaying them after
+    e2 = _cont_engine(eng, "paged", trace=True)
+    b = asyncio.run(_http_session(_http_sched(e2), payloads, want, seg_s, probe=False))
+    captured2 = dict(e2.trace_counts)
+    offline(e2)
+    if e2.trace_counts != captured2:
+        raise AssertionError("http: the offline run after the worker's captures captured")
+    out["worker_captures"] = {"captures": _slot_captures_once(e2),
+                              "capture_seconds": sum(e2.capture_seconds[k]
+                                                     for k in SLOT_PROGRAMS),
+                              "tok_s_first_run": sum(len(o["tokens"]) for o in b["outs"])
+                              / b["wall_s"]}
+    out["graphs"] = {"captures": _slot_captures_once(e), "eager_runs": e.slot_eager_runs
+                     + e2.slot_eager_runs}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
 
 
 def _reset_routes() -> None:
@@ -1903,6 +2283,7 @@ def main() -> None:
     phase_serving_modes(eng, eager, card)
     phase_continuous(eng, card)
     spec_extras = phase_speculative(eng, card)
+    phase_http(eng, card)
     converted, layer_launches = phase_layer_path(eng, card)
     kernels += phase_layer_timing(converted, layer_launches, layer_errs)
     for entry in kernels:

@@ -19,8 +19,14 @@ greedy) turns on speculative decoding with the drafter ``--spec-draft``
 ("self": the weights pruned to ``--spec-sparsity`` and kept block-sparse;
 "truncate:N": the first N layers) and gives max_len ``spec_k`` positions of
 headroom; each segment's line then says the mean accepted tokens per
-round, and the summary gives the acceptance histogram.  The reference's
-``--trace`` and ``--autotune`` are not ported yet.
+round, and the summary gives the acceptance histogram.  ``--trace``
+(poisson) records the serving trace (``serve/trace.py``: host counters
+priced through the analytic roofline) and ends with its totals and the
+photonic model's energy per token; ``--autotune`` (poisson) picks
+segment_len / prefill_chunk / block_len / spec_k with the analytic
+autotuner (``roofline/autotune.py``, priced on the H100's peak rates)
+before serving, and with ``--trace`` on a speculative run re-ranks with the
+acceptance length the run measured, as the reference's launcher does.
 
 Usage, on the card (the CUDA kernels build into ``build/`` at first use,
 before the timed run):
@@ -38,6 +44,8 @@ On the CPU, at test size (the kernels' plain versions):
         --n-requests 10 --rate 200 --new-tokens 24 --kv-layout paged
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --workload poisson --spec-k 2 --spec-draft truncate:1
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --workload poisson --trace --autotune
 """
 from __future__ import annotations
 
@@ -157,6 +165,14 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="fault injection: per-segment probability of "
                          "failing a random occupied slot (its request "
                          "retires to the queue and readmits)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record per-segment phase traces (host-side counters "
+                         "priced through the analytic roofline) and print an "
+                         "energy-per-token report at the end (poisson)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="pick segment_len/prefill_chunk/block_len/spec_k from "
+                         "the analytic autotuner before serving (poisson; "
+                         "overrides those flags)")
     args = ap.parse_args(argv)
     if args.batch < 1 or args.prompt_len < 1 or args.new_tokens < 1:
         ap.error("--batch, --prompt-len and --new-tokens must be >= 1")
@@ -167,7 +183,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     poisson_only = {"--kv-layout paged": args.kv_layout == "paged",
                     "--prefill-chunk": bool(args.prefill_chunk),
                     "--chaos-*": bool(args.chaos_exhaust_prob or args.chaos_cancel_prob
-                                      or args.chaos_slot_fail_prob)}
+                                      or args.chaos_slot_fail_prob),
+                    "--trace": args.trace, "--autotune": args.autotune}
     for flag, given in poisson_only.items():
         if given and args.workload != "poisson":
             ap.error(f"{flag} only applies to the slot scheduler: pass --workload poisson")
@@ -224,6 +241,7 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
         weight_quant_sparsity=args.weight_quant_sparsity,
         spec=(SpecConfig(k=args.spec_k, draft=args.spec_draft,
                          draft_sparsity=args.spec_sparsity) if args.spec_k else None),
+        trace=args.trace,
     )
     return ServeEngine(arch, params, sc, device=device,
                        cache_quant_int8=args.cache_quant_int8)
@@ -396,14 +414,117 @@ def report_poisson(eng: ServeEngine, useful: int, total: float, sched: Continuou
                    steps_predicated=st["steps_predicated"])
     elif st["spec_skip_reason"]:
         log.info("speculative decode disabled: %s", st["spec_skip_reason"])
+    if sched.trace is not None:
+        from repro_torch.serve.trace import trace_energy
+
+        tr = sched.trace.totals
+        log.info("trace: %d prefill + %d decode + %d spec tokens over %d launches — "
+                 "%.3g GFLOP executed, %.3g GB moved (analytic)", tr["prefill_tokens"],
+                 tr["decode_tokens"], tr["spec_tokens"], len(sched.trace.events),
+                 tr["flops"] / 1e9, tr["hbm_bytes"] / 1e9)
+        rep = trace_energy(sched.trace, eng.cfg, weight_sparsity=TRACE_WEIGHT_SPARSITY,
+                           act_sparsity=TRACE_ACT_SPARSITY,
+                           platforms=("SONIC", "NullHop", "NP100"))
+        for name, r in rep["platforms"].items():
+            log.info("energy [%-7s] %.3e J/token (%.3g J over the trace), %.1f tok/s/W at "
+                     "%.2f W (the photonic model's output, not a card reading)", name,
+                     r["j_per_token"], r["trace_energy_j"], r["tok_per_s_per_w"],
+                     r["power_w"])
+        out["trace"] = sched.trace.summary()
     return out
+
+
+# sparsity assumptions for the --trace energy report, the reference's
+TRACE_WEIGHT_SPARSITY = 0.75
+TRACE_ACT_SPARSITY = 0.5
+
+
+def _quant_bytes(args: argparse.Namespace) -> tuple[float, float]:
+    """(cache, weight) bytes per element the roofline moves under the
+    quantization flags."""
+    cache_bpe = 1.03 if args.cache_quant_int8 else 2.0
+    weight_bpe = (1.01 * (1.0 - args.weight_quant_sparsity)
+                  if args.weight_quant == "int8" else 2.0)
+    return cache_bpe, weight_bpe
+
+
+def autotune_args(args: argparse.Namespace, draws) -> float:
+    """The reference's ``--autotune`` planning step: rank the knob grid on
+    the poisson draws and set ``args``' segment_len, prefill chunk and
+    buckets, block_len and spec_k to the pick.  Returns its predicted tok/s
+    (model units)."""
+    from repro_torch.roofline.autotune import WorkloadSpec, autotune
+
+    _, p_lens, n_news, _ = draws
+    cache_bpe, weight_bpe = _quant_bytes(args)
+    w = WorkloadSpec(tuple(int(x) for x in p_lens), tuple(int(x) for x in n_news),
+                     n_slots=args.slots,
+                     max_len=args.prompt_len + args.new_tokens + 1 + args.spec_k)
+    res = autotune(get_arch(args.arch, reduced=args.reduced).cfg, w,
+                   paged=(args.kv_layout == "paged"),
+                   spec_ks=(0, args.spec_k) if args.spec_k else (0,),
+                   cache_bytes_per_elem=cache_bpe, weight_bytes_per_elem=weight_bpe)
+    log.info("autotune over %d candidates:\n%s", len(res.ranked), res.report())
+    best = res.best
+    args.segment_len = best.segment_len
+    args.prefill_chunk = best.prefill_chunk
+    args.prefill_buckets = best.prefill_buckets
+    if args.kv_layout == "paged":
+        args.block_len = best.block_len
+    if args.spec_k and best.spec_k == 0:
+        if args.trace:
+            # at the assumed acceptance of 1.0 speculation never pays; keep
+            # it on so the trace measures the real acceptance and the
+            # post-run re-rank can judge it on real numbers
+            log.info("autotune ranked spec_k=0 at assumed acceptance 1.0 — keeping "
+                     "--spec-k %d under --trace to measure the real acceptance",
+                     args.spec_k)
+        else:
+            args.spec_k = 0  # the model says speculation doesn't pay
+    log.info("autotune pick: %s (segment_len=%d prefill_chunk=%d prefill_buckets=%d "
+             "block_len=%d spec_k=%d) — predicted %.1f tok/s in model units",
+             best.label(), best.segment_len, best.prefill_chunk, best.prefill_buckets,
+             best.block_len, best.spec_k, res.ranked[0].tok_s)
+    return res.ranked[0].tok_s
+
+
+def rerank_with_acceptance(eng: ServeEngine, args: argparse.Namespace, draws, sched):
+    """After a traced speculative run: re-rank with the acceptance length
+    the run measured, so speculation competes on real numbers.  Returns the
+    ``AutotuneResult``, or None when no speculative step ran."""
+    acc = sched.trace.spec_accept_len()
+    if acc is None:
+        return None
+    from repro_torch.roofline.autotune import WorkloadSpec, autotune
+
+    _, p_lens, n_news, _ = draws
+    cache_bpe, weight_bpe = _quant_bytes(args)
+    w = WorkloadSpec(tuple(int(x) for x in p_lens), tuple(int(x) for x in n_news),
+                     n_slots=args.slots, max_len=eng.sc.max_len)
+    res = autotune(eng.cfg, w, paged=(args.kv_layout == "paged"),
+                   spec_ks=(0, sched.spec.k), spec_accept_len=acc,
+                   cache_bytes_per_elem=cache_bpe, weight_bytes_per_elem=weight_bpe)
+    log.info("autotune re-rank with measured acceptance %.2f tok/step: pick %s "
+             "(predicted %.1f tok/s, spec_k=%d)", acc, res.best.label(),
+             res.ranked[0].tok_s, res.best.spec_k)
+    return res
 
 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
+    draws = predicted = None
+    if args.autotune:
+        draws = _poisson_draws(args, get_arch(args.arch, reduced=args.reduced).cfg.vocab_size)
+        predicted = autotune_args(args, draws)
     eng = build_engine(args)
     if args.workload == "poisson":
-        report_poisson(eng, *run_poisson(eng, args))
+        useful, total, sched, handles = run_poisson(eng, args, draws)
+        report_poisson(eng, useful, total, sched, handles)
+        if predicted is not None:
+            log.info("autotune: predicted %.1f tok/s (model units, ranking only) vs "
+                     "measured %.1f tok/s", predicted, useful / total if total > 0 else 0.0)
+        if args.autotune and sched.trace is not None and sched.spec is not None:
+            rerank_with_acceptance(eng, args, draws, sched)
     else:
         run_batch(eng, args)
 

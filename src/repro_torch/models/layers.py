@@ -41,6 +41,18 @@ DECODE_QUERY_ROWS = {"cpu": CPU_ROWS, "cuda": 16}
 PREFILL_QUERY_CHUNK = 64
 
 
+def decode_query_rows(device_type: str, k: int = 0) -> int:
+    """The query rows an engine pads its decode-style attention to, so that
+    its decode steps and its verify windows of k + 1 rows (k = 0: no
+    speculation) run one shape: on the card the multiple of
+    ``DECODE_QUERY_ROWS["cuda"]`` at or above k + 1; elsewhere the floor of
+    ``DECODE_QUERY_ROWS`` (the plain versions' rows do not depend on it)."""
+    base = DECODE_QUERY_ROWS.get(device_type, 1)
+    if device_type != "cuda":
+        return base
+    return base * -(-(k + 1) // base)
+
+
 def _row_floor(x: torch.Tensor) -> int:
     return DENSE_CUDA_ROWS if x.device.type == "cuda" else CPU_ROWS
 
@@ -201,19 +213,21 @@ def decode_attention(
     k_cache: torch.Tensor,  # (B, S_max, KH, Dh)
     v_cache: torch.Tensor,  # (B, S_max, KH, Dh)
     pos: torch.Tensor,  # (B,) position of the FIRST query token
+    rows: int = 0,  # query rows to pad to; 0 = DECODE_QUERY_ROWS
 ) -> torch.Tensor:
     """Decode-style attention over the cache: query i (at absolute position
     ``pos + i``) attends cache positions ``<= pos + i``; everything beyond is
     masked.  One plain softmax per query row (not the online-softmax flash
     path), as in the reference: C == 1 is a decode step, C > 1 the
     speculative-verify window, whose rows are each the decode step they
-    replace.  The query rows are padded to ``DECODE_QUERY_ROWS`` (their
-    outputs dropped), so a step and a window up to that size run the same
-    shapes and give a row the same bits."""
+    replace.  The query rows are padded to ``rows`` (the engine's
+    ``decode_query_rows``; by default ``DECODE_QUERY_ROWS``), their outputs
+    dropped, so a step and a window up to that size run the same shapes and
+    give a row the same bits."""
     b, c, h, dh = q.shape
     kh = k_cache.shape[2]
     g = h // kh
-    cp = max(c, DECODE_QUERY_ROWS.get(q.device.type, 1))
+    cp = max(c, rows or DECODE_QUERY_ROWS.get(q.device.type, 1))
     qg = _pad_axis1(q, cp).reshape(b, cp, kh, g, dh)
     s = _gqa_scores(qg, k_cache, dh**-0.5)  # (B,KH,G,Cp,S_max) fp32
     idx = torch.arange(k_cache.shape[1], device=q.device)
@@ -355,6 +369,7 @@ def attention_apply(
     cache_pos: torch.Tensor | None = None,  # (B,)
     block_table: torch.Tensor | None = None,  # (B, MB) — paged cache
     decode_chunk: bool = False,  # speculative-verify window
+    query_rows: int = 0,  # decode-style attention's padded query rows
 ) -> tuple[torch.Tensor, tuple | None]:
     """Full attention block (no norm/residual).  Returns (out, cache); every
     cache array is updated in place.
@@ -428,7 +443,7 @@ def attention_apply(
         k_att, v_att = read(k_c), read(v_c)
     s_max = k_att.shape[1]
     if s == 1 or (decode_chunk and cache_pos is not None):
-        out = decode_attention(q, k_att, v_att, cache_pos)
+        out = decode_attention(q, k_att, v_att, cache_pos, query_rows)
     elif cache_pos is not None or quant:  # chunk-resume, or any int8-KV prefill
         out = flash_attention(q, k_att, v_att, positions, _kv_positions(b, s_max, x.device),
                               q_chunk=PREFILL_QUERY_CHUNK)

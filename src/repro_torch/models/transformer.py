@@ -45,12 +45,14 @@ def layer_apply(
     cache_pos: torch.Tensor | None = None,
     block_table: torch.Tensor | None = None,
     decode_chunk: bool = False,
+    query_rows: int = 0,
 ) -> torch.Tensor:
     h, _ = L.attention_apply(
         p["attn"], cfg, L.norm_apply(p["ln1"], x), positions,
         cache=None if cache is None else cache[:2],
         cache_scales=cache[2:] if cache is not None and len(cache) == 4 else None,
-        cache_pos=cache_pos, block_table=block_table, decode_chunk=decode_chunk)
+        cache_pos=cache_pos, block_table=block_table, decode_chunk=decode_chunk,
+        query_rows=query_rows)
     x = x + h
     return x + L.ffn_apply(p["ffn"], L.norm_apply(p["ln2"], x))
 
@@ -72,6 +74,7 @@ def trunk_apply(
     cache_pos: torch.Tensor | None = None,
     block_table: torch.Tensor | None = None,  # paged: the leaves are pools
     decode_chunk: bool = False,  # speculative-verify window
+    query_rows: int = 0,  # decode-style attention's padded query rows
 ) -> tuple[torch.Tensor, dict | None]:
     """Apply the stacked layers in order.  The cache is updated in place
     (each layer writes its view of every leaf) and returned.  With
@@ -82,7 +85,7 @@ def trunk_apply(
     for i in range(cfg.n_layers):
         kv = tuple(cache[n][i] for n in leaves) or None
         x = layer_apply(_layer(params["layers"], i), cfg, x, positions, kv, cache_pos,
-                        block_table, decode_chunk)
+                        block_table, decode_chunk, query_rows)
     return x, cache
 
 
@@ -96,6 +99,7 @@ def forward(
     cache_pos: torch.Tensor | None = None,  # (B,) decode step / chunk-resume start
     block_table: torch.Tensor | None = None,  # (B, MB) — paged KV
     decode_chunk: bool = False,  # speculative-verify window
+    query_rows: int = 0,  # decode-style attention's padded query rows
 ) -> tuple[torch.Tensor, dict | None]:
     """→ (logits (B, S, V), cache).
 
@@ -103,7 +107,8 @@ def forward(
     the chunk at absolute positions ``cache_pos .. cache_pos+S-1`` over the
     cache's prefix.  ``decode_chunk=True`` (with ``cache_pos``, S > 1) is
     the speculative-verify window: the same writes, and each row attends as
-    the sequential decode step it replaces (``layers.decode_attention``)."""
+    the sequential decode step it replaces (``layers.decode_attention``,
+    its query rows padded to ``query_rows``, 0 = the device's default)."""
     x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
     b, s = tokens.shape
     if positions is None:
@@ -113,7 +118,7 @@ def forward(
             # row's cache offset
             positions = cache_pos[:, None] + positions
     x, cache = trunk_apply(params, cfg, x, positions, cache, cache_pos, block_table,
-                           decode_chunk)
+                           decode_chunk, query_rows)
     x = L.norm_apply(params["final_norm"], x)
     return L.lm_head_apply(params["lm_head"], x), cache
 

@@ -104,9 +104,11 @@ truncation.  The drafters: ``"self"``, the unquantized weights pruned to
 and ``"truncate:N"``, the served model's first N layers drafting from the
 verifier's own cache (its leaves' first N layers, views: its k/v land in
 the verifier's cache at ``pos … pos+k−1``, which the window rewrites
-before it reads them).  Greedy only; the window must fit the
-decode attention's padded query rows (k + 1 ≤ 16) and, paged, a slot's
-scratch block (k < block_len).
+before it reads them).  Greedy only; paged, the window must fit a slot's
+scratch block (k < block_len).  The engine pads its decode-style attention
+to ``query_rows`` (``layers.decode_query_rows``: on the card the multiple of
+16 at or above k + 1, 16 without speculation), so its decode steps and
+verify windows run one shape and a decode row keeps its window row's bits.
 """
 from __future__ import annotations
 
@@ -123,7 +125,7 @@ from repro_torch.core.sonic_layers import (quantize_serve_params, sparse_draft_p
                                            truncated_draft_params)
 from repro_torch.kernels import counters
 from repro_torch.models import registry
-from repro_torch.models.layers import DECODE_QUERY_ROWS
+from repro_torch.models.layers import decode_query_rows
 from repro_torch.models.registry import Arch
 from repro_torch.serve.sampling import sample_token, spec_accept
 from repro_torch.utils.logging import get_logger
@@ -202,6 +204,9 @@ class ServeConfig:
     # run the scheduler's allocator / table / commitment invariant checks
     # at the end of every segment (host dicts only, never the device)
     debug_invariants: bool = False
+    # the continuous scheduler owns a ``serve.trace.TraceRecorder`` (host
+    # counters priced through ``roofline.analytic``); False = no recorder
+    trace: bool = False
 
 
 @contextlib.contextmanager
@@ -340,6 +345,10 @@ class ServeEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: pass device='cpu' to serve "
                                "on the CPU")
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card this thread means by "cuda", named: another thread
+            # (the front door's worker) serves on the same one
+            self.device = torch.device("cuda", torch.cuda.current_device())
         raw = params = _to_device(params, self.device)  # raw: the "self" drafter's source
         if sc.weight_quant == "int8":
             params = quantize_serve_params(params, sparsity=sc.weight_quant_sparsity,
@@ -348,6 +357,8 @@ class ServeEngine:
         self.cache_quant_int8 = cache_quant_int8
         self.graphs = sc.loop != "python" and self.device.type == "cuda"
         self._resolve_drafter(raw)
+        self.query_rows = decode_query_rows(self.device.type,
+                                            self.spec.k if self.spec is not None else 0)
         names = ("prefill", "decode", *SLOT_PROGRAMS)
         self.trace_counts: dict[str, int] = dict.fromkeys(names, 0)  # captures
         self.capture_seconds: dict[str, float] = dict.fromkeys(names, 0.0)
@@ -385,10 +396,6 @@ class ServeEngine:
                         "%s", reason)
             return
         k = sc.spec.k
-        if k + 1 > DECODE_QUERY_ROWS["cuda"]:
-            raise ValueError(f"spec.k {k}: the verify window's k + 1 rows must fit the "
-                             f"{DECODE_QUERY_ROWS['cuda']} query rows decode attention "
-                             f"pads to on the card")
         if sc.kv_layout == "paged" and k >= sc.block_len:
             raise ValueError(f"spec.k {k} must be < block_len {sc.block_len} (the "
                              f"k+1-token verify window of a masked slot must fit its "
@@ -446,7 +453,7 @@ class ServeEngine:
         """One decode step, in place: forward the carried token at ``pos``,
         sample, eos-check and pin, write the next output column."""
         logits, _ = self.arch.forward(self.params, tokens=st.tok[:, None], cache=st.cache,
-                                      cache_pos=st.pos)
+                                      cache_pos=st.pos, query_rows=self.query_rows)
         last = logits[:, 0]
         st.logits.copy_(last.float())
         nxt = self._sample(last, generator)
@@ -749,7 +756,8 @@ class ServeEngine:
         nothing advances, as if the loop had stopped."""
         sc = self.sc
         logits, _ = self.arch.forward(self.params, tokens=st.tok[:, None], cache=st.cache,
-                                      cache_pos=st.pos, block_table=block_table)
+                                      cache_pos=st.pos, block_table=block_table,
+                                      query_rows=self.query_rows)
         nxt = self._sample(logits[:, 0], st.generator)
         live = active & ~st.done
         if go is not None:
@@ -851,13 +859,14 @@ class ServeEngine:
         for i in range(k):
             dlogits, _ = self.arch.forward(self.draft_params, cfg=self.draft_cfg,
                                            tokens=cur[:, None], cache=d_cache,
-                                           cache_pos=st.pos + i, block_table=block_table)
+                                           cache_pos=st.pos + i, block_table=block_table,
+                                           query_rows=self.query_rows)
             cur = torch.argmax(dlogits[:, 0], dim=-1)
             window.append(cur)
         window = torch.stack(window, dim=1)  # (n_slots, k+1)
         logits, _ = self.arch.forward(self.params, tokens=window, cache=st.cache,
                                       cache_pos=st.pos, block_table=block_table,
-                                      decode_chunk=True)
+                                      decode_chunk=True, query_rows=self.query_rows)
         verify = torch.argmax(logits, dim=-1)
         emitted, n_emit, last = spec_accept(window, verify, live, st.pos, limit,
                                             sc.eos_token)

@@ -1,9 +1,9 @@
 """Continuous-batching scheduler: a slot-based KV cache over the slot
 programs of ``ServeEngine``.
 
-The port of ``repro.serve.scheduler`` (``BlockAllocator`` whole, and
-``ContinuousScheduler`` without the tenant policy and the trace recorder,
-whose modules are not ported yet).  The device never sees requests: it
+The port of ``repro.serve.scheduler``, whole (``BlockAllocator`` and
+``ContinuousScheduler`` with its tenant policy, SLO controller step, trace
+hooks and drain predictor).  The device never sees requests: it
 sees a fixed-capacity slot state (``engine.SlotState``) that every slot
 program updates in place, at fixed addresses, so the programs replay as
 CUDA graphs on the card:
@@ -57,6 +57,16 @@ device's acceptance already enforces eos and budgets).  Requests need
 ``spec.k`` positions of max_len headroom (and of mapped blocks, paged) for
 the rejected tail the cursor rollback truncates.
 
+Multi-tenant admission (``policy=TenantPolicy(...)``, ``serve/policy.py``):
+``submit`` routes tenants and priority classes through it (brownout shed →
+``Overloaded``, token bucket → ``RateLimited``), admission takes its DRR
+pick instead of the FIFO head, classes cap chunks and token budgets, the
+victim order ranks by class first, and ``run_segment`` steps its brownout
+controller once per segment.  With ``ServeConfig.trace`` the scheduler owns
+a ``serve.trace.TraceRecorder`` fed at every launch site; without it each
+site is one ``is not None`` check.  All of it reads host state only
+(``Request.tokens``, ``slots``, ``queue``): no device sync is added.
+
 Greedy outputs equal ``ServeEngine.generate``'s at B = 1 bit for bit, under
 either layout and either admission path, preempted or not, speculating or
 not.  Temperature
@@ -74,6 +84,7 @@ import torch
 
 from repro_torch.serve.chaos import ChaosConfig
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.policy import Overloaded, RateLimited, TenantPolicy
 from repro_torch.serve.request import (CANCELLED, EXPIRED, FINISHED, QUEUED,
                                        RUNNING, Request, SubmitRequest)
 from repro_torch.utils.logging import get_logger
@@ -178,16 +189,11 @@ class ContinuousScheduler:
         overcommit: float = 1.0,
         preempt_mode: str = "recompute",
         chaos: ChaosConfig | None = None,
-        policy=None,
+        policy: TenantPolicy | None = None,
     ):
         assert n_slots >= 1 and segment_len >= 1, (n_slots, segment_len)
         assert overcommit >= 1.0, f"overcommit must be >= 1.0, got {overcommit}"
         assert preempt_mode in ("recompute", "swap"), preempt_mode
-        if policy is not None:
-            raise NotImplementedError(
-                "the tenant policy (serve/policy.py) is not ported yet: ROADMAP "
-                "Queue 1, the policy / HTTP item")
-        self.policy = None
         # speculative decoding: the engine resolved the drafter (or recorded
         # why its family cannot speculate); segments become draft-and-verify
         # rounds and requests need spec_k positions of headroom
@@ -238,6 +244,25 @@ class ContinuousScheduler:
         # makes progress.
         assert prefill_token_budget >= 0, prefill_token_budget
         self.prefill_token_budget = int(prefill_token_budget) if self.chunked else 0
+        # multi-tenant admission policy: when installed, submit routes
+        # tenants/priorities and rate-limits through it, and
+        # _claim_queue_head admits its DRR pick instead of the FIFO head.
+        # Per-class chunk caps must be members of the bucket set so capped
+        # chunks reuse already-captured prefill shapes.
+        self.policy = policy
+        if policy is not None and self.chunked:
+            for cls in policy.classes.values():
+                cap = cls.prefill_chunk_cap
+                if cap and cap not in self.buckets:
+                    raise ValueError(
+                        f"priority class '{cls.name}': prefill_chunk_cap "
+                        f"{cap} is not in the scheduler's bucket set "
+                        f"{self.buckets}"
+                    )
+            # brownout handshake: the level-2 clamp shrinks victim-class
+            # chunk caps / token budgets to the SMALLEST bucket, so the
+            # degraded shapes reuse already-captured prefill programs
+            policy.bind_chunk_buckets(self.buckets)
         # slot -> next chunk start offset for requests still prefilling
         # (admitted to a slot, not yet active; chunks advance one per round)
         self._prefill_start: dict[int, int] = {}
@@ -355,6 +380,14 @@ class ContinuousScheduler:
             "preemptions_by_class": {},
             "brownout_changes": 0,
         }
+
+        # opt-in per-segment trace recorder (ServeConfig.trace); None keeps
+        # every hook site to a single attribute check
+        self.trace = None
+        if engine.sc.trace:
+            from repro_torch.serve.trace import TraceRecorder
+
+            self.trace = TraceRecorder(engine)
 
     # the device state, as the reference's scheduler names it
     @property
@@ -492,6 +525,12 @@ class ContinuousScheduler:
                 and slot not in self._prefill_start
                 and slot not in self._replay):
             self._swap_out(slot, req)
+        if self.trace is not None:
+            swapped = 0
+            if req._swap is not None:
+                swapped = sum(x.nbytes for x in req._swap.values())
+            self.trace.record_preempt(self.stats["segments"],
+                                      len(req.tokens), swapped)
         self._vacate_slot(slot)
         req.state = QUEUED
         req.preempts += 1
@@ -503,15 +542,24 @@ class ContinuousScheduler:
         log.debug("preempted rid=%d from slot %d (%s, emitted=%d)",
                   req.rid, slot, reason, len(req.tokens))
 
+    def _class_level(self, slot: int) -> int:
+        """Priority-class level of a resident (0 without a policy — every
+        slot ranks equal and the least-progress victim order is
+        unchanged)."""
+        if self.policy is None:
+            return 0
+        return self.policy.level_of(self.slots[slot].priority)
+
     def _preempt_for_blocks(self) -> bool:
-        """Pick and evict one victim so growth can retry: least progress
-        first, ties evict the latest arrival (highest rid).  The MOST
-        progressed resident (ties: earliest arrival) is protected — it is
-        never evicted, always fits the pool on its own (``submit`` bounds
-        every request's budget by the capacity), and monotonically runs to
-        completion, so preemption always terminates and the scheduler
-        always makes progress.  Returns False when no evictable resident
-        remains."""
+        """Pick and evict one victim so growth can retry: lowest priority
+        class first (batch before standard before interactive), then least
+        progress, ties evict the latest arrival (highest rid).  The MOST
+        progressed resident (ties: earliest arrival) is protected
+        regardless of class — it is never evicted, always fits the pool on
+        its own (``submit`` bounds every request's budget by the capacity),
+        and monotonically runs to completion, so preemption always
+        terminates and the scheduler always makes progress.  Returns False
+        when no evictable resident remains."""
         residents = [s for s in range(self.n_slots)
                      if self.slots[s] is not None]
         if len(residents) < 2:
@@ -521,7 +569,8 @@ class ContinuousScheduler:
             key=lambda s: (self._progress_key(s), -self.slots[s].rid))
         victim = min(
             (s for s in residents if s != protected),
-            key=lambda s: (self._progress_key(s), -self.slots[s].rid))
+            key=lambda s: (self._class_level(s), self._progress_key(s),
+                           -self.slots[s].rid))
         self._preempt_slot(victim)
         return True
 
@@ -607,6 +656,9 @@ class ContinuousScheduler:
         self.done[slot] = False
         self.active[slot] = True
         self.limit[slot] = req.prompt_len + req.max_new_tokens - 1
+        if self.trace is not None:
+            self.trace.record_swap_in(self.stats["segments"],
+                                      sum(x.nbytes for x in req._swap.values()))
         req._swap = None
         req._swap_nb = 0
         self.stats["swap_ins"] += 1
@@ -631,6 +683,14 @@ class ContinuousScheduler:
         req.finish_t = now
         req._swap, req._swap_nb = None, 0  # drop any host KV payload
         self.stats["cancelled" if state == CANCELLED else "expired"] += 1
+        if self.policy is not None and state == EXPIRED:
+            # an expiry IS an SLO observation: a request that died before
+            # its first token feeds its waiting age to the monitor as the
+            # TTFT it effectively experienced (the brownout controller must
+            # see misses, not just the survivors' successes)
+            if req.first_token_t is None:
+                self.policy.observe_ttft(req.priority, now - req.submit_t)
+            self.policy.observe_latency(req.priority, now - req.submit_t)
 
     def _sweep_terminal(self) -> None:
         """Honor cancellations and deadlines at the segment boundary: queued
@@ -693,10 +753,14 @@ class ContinuousScheduler:
                 self.stats["chaos_cancels"] += 1
 
     def _count_token(self, req: Request) -> None:
-        """Per-tenant count of one emitted token (replays excluded — they
-        were counted at first emission)."""
+        """Per-tenant billing for one emitted token (replays excluded —
+        they were billed at first emission)."""
         tt = self.stats["tenant_tokens"]
         tt[req.tenant] = tt.get(req.tenant, 0) + 1
+        if self.policy is not None:
+            self.policy.note_tokens(req.tenant)
+        if self.trace is not None:
+            self.trace.note_tenant_tokens(req.tenant)
 
     def _note_emission_after_readmit(self, req: Request, now: float) -> None:
         """First emission after a readmission closes the preemption gap —
@@ -721,7 +785,10 @@ class ContinuousScheduler:
         """Queue one request; returns its live handle (tokens stream into
         ``handle.tokens`` as segments complete).  Invalid submissions raise
         ``ValueError`` here instead of surfacing opaque shape/device errors
-        mid-run."""
+        mid-run; with a :class:`TenantPolicy` installed a shed submission
+        raises :class:`Overloaded` and an over-rate tenant
+        :class:`RateLimited` (after shape validation, so malformed requests
+        still surface as ``ValueError``)."""
         if isinstance(prompt, SubmitRequest):
             sub = prompt
         else:
@@ -766,16 +833,39 @@ class ContinuousScheduler:
                     f"request needs {full} blocks but the pool has "
                     f"{self.allocator.capacity}"
                 )
+        req_tenant = sub.tenant if sub.tenant is not None else "default"
+        ttft = sub.ttft_deadline_s
+        if self.policy is not None:
+            spec = self.policy.spec_for(req_tenant)
+            req_priority = (sub.priority if sub.priority is not None
+                            else spec.default_priority)
+            cls = self.policy.class_for(req_priority)  # unknown -> ValueError
+            if ttft is None:
+                ttft = cls.ttft_deadline_s  # class default TTFT SLO
+            # brownout shed before the rate gate: a shed submission must
+            # not consume the tenant's token-bucket credit
+            if self.policy.should_shed(req_priority):
+                raise Overloaded(req_tenant, self.policy.shed_retry_after(),
+                                 req_priority, self.policy.brownout_level)
+            # rate gate last: malformed requests fail as ValueError above
+            # even when the tenant is also over rate
+            retry = self.policy.charge_rate(req_tenant, self.clock())
+            if retry is not None:
+                raise RateLimited(req_tenant, retry)
+            self.policy.note_submitted(req_tenant)
+        else:
+            req_priority = (sub.priority if sub.priority is not None
+                            else "standard")
         req = Request(
             rid=self._next_rid,
             prompt=p,
             max_new_tokens=sub.max_new_tokens,
             on_token=sub.on_token,
             submit_t=self.clock(),
-            ttft_deadline_s=sub.ttft_deadline_s,
+            ttft_deadline_s=ttft,
             deadline_s=sub.deadline_s,
-            tenant=sub.tenant if sub.tenant is not None else "default",
-            priority=sub.priority if sub.priority is not None else "standard",
+            tenant=req_tenant,
+            priority=req_priority,
         )
         self._next_rid += 1
         self.queue.append(req)
@@ -815,7 +905,11 @@ class ContinuousScheduler:
         not give the decode steps' bits."""
         if not self.queue:
             return None
-        req = self.queue[0]
+        # policy pick: the TenantPolicy's DRR/priority choice replaces the
+        # FIFO head; select() is a pure peek, so a deferral below leaves
+        # the policy state untouched and the pick re-derives next round
+        req = (self.queue[0] if self.policy is None
+               else self.policy.select(self.queue))
         prefix = None if req._swap is not None else req.prompt
         if self.paged:
             full = self._blocks_for(req)
@@ -839,7 +933,11 @@ class ContinuousScheduler:
             self._prefix[slot] = prefix
             if req.tokens:
                 self._replay[slot] = collections.deque(req.tokens)
-        self.queue.popleft()
+        if self.policy is None:
+            self.queue.popleft()
+        else:
+            self.policy.on_admitted(self.queue, req)  # commit the DRR pick
+            self.queue.remove(req)
         req.state = RUNNING
         req.slot_history.append(slot)
         self.stats["admitted"] += 1
@@ -883,6 +981,10 @@ class ContinuousScheduler:
         covering bucket."""
         rem = len(self._prefix[slot]) - start
         cap = self.prefill_chunk
+        if self.policy is not None:
+            # per-class chunk cap (validated at init to be a bucket member,
+            # so capped chunks reuse already-captured prefill shapes)
+            cap = self.policy.chunk_cap(self.slots[slot].priority) or cap
         if rem > cap:
             return cap, cap, False
         bucket = next(b for b in self.buckets if b >= rem)
@@ -909,6 +1011,17 @@ class ContinuousScheduler:
         self._claim_free_slots()
         n_live = 0
         budget = self.prefill_token_budget
+        if self.policy is not None and self._prefill_start:
+            # per-class budget override: honor the most generous budget
+            # among the round's prefilling classes, so an interactive
+            # prefill is never throttled down to a batch neighbor's budget
+            overrides = [
+                self.policy.token_budget(self.slots[s].priority)
+                for s in self._prefill_start
+            ]
+            overrides = [b for b in overrides if b is not None]
+            if overrides:
+                budget = max(overrides)
         spent = 0
         while self._prefill_start:
             went_live, tokens = self._prefill_round(
@@ -997,6 +1110,10 @@ class ContinuousScheduler:
             self.stats["chunks_prefilled"] += len(rows)
             hist = self.stats["prefill_batch_hist"]
             hist[len(rows)] = hist.get(len(rows), 0) + 1
+            if self.trace is not None:
+                self.trace.record_prefill(
+                    self.stats["segments"], width, bucket,
+                    sum(r[2] for r in rows), [r[1] for r in rows])
         # the ONLY admit-round download: every launch's first tokens at once
         firsts_h = (torch.cat([f for _, f in launched]).cpu().numpy()
                     if launched else np.zeros(0, np.int64))
@@ -1032,6 +1149,9 @@ class ContinuousScheduler:
                     continue
                 if req.first_token_t is None:
                     req.first_token_t = now
+                    if self.policy is not None:
+                        self.policy.observe_ttft(req.priority,
+                                                 now - req.submit_t)
                 req._emit(int(fh[i]))
                 self._count_token(req)
                 self._note_emission_after_readmit(req, now)
@@ -1043,6 +1163,9 @@ class ContinuousScheduler:
                     req.state = FINISHED
                     req.finish_reason = "length"
                     req.finish_t = now
+                    if self.policy is not None:
+                        self.policy.observe_latency(req.priority,
+                                                    now - req.submit_t)
                     self._vacate_slot(slot)
                     self.stats["retired"] += 1
                 else:
@@ -1084,6 +1207,9 @@ class ContinuousScheduler:
                 first = eng.prefill_slot(
                     self.state, prefix, slot,
                     self.block_table[slot] if self.paged else None)
+                if self.trace is not None:
+                    self.trace.record_prefill(self.stats["segments"], 1,
+                                              len(prefix), len(prefix), [0])
                 resumed = bool(req.tokens)
                 pending.append((req, slot, first, resumed))
                 if resumed:
@@ -1122,6 +1248,8 @@ class ContinuousScheduler:
             # a fresh admission's first token never eos-pins
             if req.first_token_t is None:
                 req.first_token_t = now
+                if self.policy is not None:
+                    self.policy.observe_ttft(req.priority, now - req.submit_t)
             req._emit(int(first))
             self._count_token(req)
             self._note_emission_after_readmit(req, now)
@@ -1129,14 +1257,79 @@ class ContinuousScheduler:
                 req.state = FINISHED
                 req.finish_reason = "length"
                 req.finish_t = now
+                if self.policy is not None:
+                    self.policy.observe_latency(req.priority,
+                                                now - req.submit_t)
                 self.stats["retired"] += 1
         return len(pending)
+
+    # ------------------------------------------------------- SLO feedback
+
+    def _update_slo(self) -> None:
+        """One brownout-controller step per segment: feed the monitor the
+        target class's CURRENT waiting ages (queued or claimed, no first
+        token yet) so the ladder reacts to a building queue before the
+        damage shows up in completed TTFTs, and trace the transition."""
+        if self.policy is None or self.policy.slo is None:
+            return
+        now = self.clock()
+        target = self.policy.slo.cfg.target_class
+        waiting = [
+            now - r.submit_t
+            for r in list(self.queue) + [s for s in self.slots
+                                         if s is not None]
+            if r.priority == target and r.first_token_t is None
+        ]
+        new_level = self.policy.update_slo(waiting)
+        if new_level is not None:
+            self.stats["brownout_changes"] += 1
+            log.debug("brownout level -> %d (ttft q=%.3fs deadline=%.3fs)",
+                      new_level, self.policy.slo.last_quantile or 0.0,
+                      self.policy.slo.deadline)
+            if self.trace is not None:
+                self.trace.record_brownout(self.stats["segments"], new_level)
+
+    def queue_composition(self) -> tuple[list[int], list[int]]:
+        """Remaining work as (prompt_lens, new_tokens) pairs for the drain
+        predictor: queued requests owe their whole prompt prefill plus
+        their remaining generation; residents owe only their remaining
+        generation (one token stands in for the already-paid prefill)."""
+        plens, news = [], []
+        for r in self.queue:
+            plens.append(r.prompt_len)
+            news.append(max(1, r.max_new_tokens - len(r.tokens)))
+        for r in self.slots:
+            if r is None:
+                continue
+            plens.append(1)
+            news.append(max(1, r.max_new_tokens - len(r.tokens)))
+        return plens, news
+
+    def drain_predictor(self):
+        """A :class:`repro_torch.roofline.autotune.DrainPredictor` bound to
+        this scheduler's knob configuration (priced on the card,
+        ``roofline.hw.H100``) — the front door calibrates it against
+        measured per-request walls and predicts ``Retry-After`` from
+        ``queue_composition()`` instead of a scalar EWMA."""
+        from repro_torch.roofline.autotune import DrainPredictor, KnobConfig
+
+        knobs = KnobConfig(
+            segment_len=self.segment_len,
+            prefill_chunk=self.prefill_chunk if self.chunked else 0,
+            prefill_buckets=len(self.buckets) if self.chunked else 4,
+            spec_k=self.spec_k,
+            block_len=self.block_len if self.paged else 0,
+        )
+        return DrainPredictor(
+            self.engine.arch.cfg, knobs, n_slots=self.n_slots,
+            max_len=self.engine.sc.max_len, paged=self.paged,
+        )
 
     # ------------------------------------------------------------- segment
 
     def run_segment(self) -> int:
-        """chaos → terminal sweep → admit → grow → one segment → stream +
-        retire.  Returns the number of requests still running afterwards.
+        """chaos → terminal sweep → SLO controller step → admit → grow →
+        one segment → stream + retire.  Returns the number of requests still running afterwards.
 
         With ``ServeConfig.debug_invariants`` the allocator/table/commitment
         invariants are checked at the end of EVERY segment, so a violation
@@ -1148,6 +1341,7 @@ class ContinuousScheduler:
         debug = self.engine.sc.debug_invariants
         self._inject_chaos()
         self._sweep_terminal()
+        self._update_slo()
         self._admit()
         self._ensure_segment_capacity()
         if not self.active.any():
@@ -1191,6 +1385,14 @@ class ContinuousScheduler:
         n_exec = (int(live_step.any(axis=0).sum())
                   if self.segment_mode == "while" else self.segment_len)
         live_counts = live_step.sum(axis=1)  # live steps per slot
+        if self.trace is not None:
+            if self.spec is not None:
+                self.trace.record_spec(
+                    self.stats["segments"], self.n_slots, n_exec,
+                    int(live_step.sum()), int(per_step[live_step].sum()))
+            else:
+                self.trace.record_decode(self.stats["segments"], self.n_slots,
+                                         n_exec, int(live_counts.sum()))
         if self.segment_mode == "while":
             self.stats["steps_predicated"] += ran - n_exec
         self.stats["steps_total"] += n_exec
@@ -1233,6 +1435,9 @@ class ContinuousScheduler:
                 req.state = FINISHED
                 req.finish_reason = "stop" if saw_eos else "length"
                 req.finish_t = now
+                if self.policy is not None:
+                    self.policy.observe_latency(req.priority,
+                                                now - req.submit_t)
                 self._vacate_slot(slot)
                 self.stats["retired"] += 1
         if debug:

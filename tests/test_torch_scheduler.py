@@ -229,6 +229,13 @@ def test_submit_validation_raises_as_jax(sides, bad):
 
 
 def test_policy_is_not_ported_yet(sides):
+    """Now ported: a scheduler takes a ``TenantPolicy`` and serves through
+    it (``tests/test_torch_scheduler_policy.py`` holds it against JAX's)."""
+    from repro_torch.serve.policy import TenantPolicy, TenantSpec
+
     _, eng = sides()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousScheduler(eng, policy=object())
+    policy = TenantPolicy(tenants={"acme": TenantSpec(weight=3.0)})
+    sched = ContinuousScheduler(eng, n_slots=1, policy=policy)
+    h = sched.submit(np.arange(1, 6, dtype=np.int32), 3, tenant="acme")
+    sched.run()
+    assert h.done and policy.snapshot()["acme"]["served_tokens"] == 3

@@ -2,7 +2,7 @@
 (``tests/test_serve_spec.py`` is the checklist, with its drafter and
 refusal cases in ``tests/test_torch_spec_drafters.py``): greedy
 draft-and-verify through the continuous scheduler, dense and paged, k ∈
-{1, 2, 4}, scan and while, chunked admission, the int8 KV cache (an eos
+{1, 2, 4} (and 16, dense), scan and while, chunked admission, the int8 KV cache (an eos
 inside the window is in ``tests/test_torch_spec_robust.py``).
 
 Setup and parity as ``tests/torch_scheduler_pair.py`` says (reduced
@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.models.layers import decode_query_rows
 from repro_torch.serve.engine import SLOT_PROGRAMS, SpecConfig
 from repro_torch.serve.scheduler import ContinuousScheduler
 from torch_scheduler_pair import (MAX_LEN, drain, generate, prompts_of, sides_fixture,
@@ -61,6 +62,22 @@ def test_spec_matches_jax_and_generate(sides, baseline, layout, k):
     assert st["spec_steps"] > 0
     assert st["spec_emitted"] == sum(c * n for n, c in st["accepted_hist"].items())
     assert all(1 <= n <= k + 1 for n in st["accepted_hist"])
+
+
+def test_spec_k16_dense_matches_jax_and_generate(sides, baseline):
+    """k = 16: a 17-row verify window, past the 16 query rows decode
+    attention pads to without speculation; the engine pads its decode
+    steps and windows alike (32 rows on the card), so its tokens are
+    still ``generate``'s, and JAX's tokens and counters."""
+    spec = SpecConfig(k=16, draft="truncate:1")
+    got, sched = _spec_parity(sides, spec)
+    assert got == baseline
+    eng = sides(spec=spec)[1]
+    assert eng.spec.k == 16 and eng.query_rows == 2  # the CPU floor
+    assert [decode_query_rows("cuda", k) for k in (0, 1, 15, 16, 31, 32)] == [
+        16, 16, 16, 32, 32, 48]
+    assert sched.stats["spec_steps"] > 0
+    assert max(sched.stats["accepted_hist"]) <= 17
 
 
 def test_spec_scan_segments_match_jax(sides, baseline):

@@ -215,7 +215,7 @@ def test_spec_falls_back_on_a_family_that_cannot_speculate(raw):
     (dict(temperature=0.7, spec=SpecConfig(k=2)), "greedy-only"),
     (dict(kv_layout="paged", block_len=4, spec=SpecConfig(k=4, draft="truncate:1")),
      "scratch block"),
-    (dict(max_len=64, spec=SpecConfig(k=16, draft="truncate:1")), "query rows"),
+    (dict(kv_layout="paged", spec=SpecConfig(k=8, draft="truncate:1")), "scratch block"),
     (dict(spec=SpecConfig(k=2, draft="truncate:3")), "2 layers"),
 ])
 def test_spec_refusals_raise(raw, bad, match):
