@@ -155,7 +155,9 @@ Phases, in order; any failure exits non-zero before the last line:
      to 0.75 and kept block-sparse in bf16, on block_sparse_matmul) and
      ``truncate:22`` (the whole model, whose drafts must all be accepted
      but at budget edges, at k = 4 and at k = 16: windows of 17 rows, the
-     queries padded to 32, 68 rows a window) — and k = 2 ``truncate:1``
+     queries padded to 32, 68 rows a window; k = 16 also on the seed's
+     unquantized bf16 weights, whose 68-row windows leave the dense path's
+     64-row floor) — and k = 2 ``truncate:1``
      with int8 KV, paged
      overcommit with recompute (preemption must happen) and chunked
      admission, each request equal to its own ``generate`` at B = 1; the
@@ -189,6 +191,30 @@ Phases, in order; any failure exits non-zero before the last line:
      streams in flight (all complete); the graphs captured on the main
      thread and replayed on the worker, and on a fresh engine captured on
      the worker and replayed on the main thread; no slot program eager.
+ 16. every family of ``models/transformer.py`` (``phase_families``, after
+     the pipeline; the tinyllama engines released first): random bf16
+     params from seeded generators on the card, greedy batch 4 × prompt
+     64 on the "scan" loop, the counters zeroed just before each
+     ``generate`` and read just after.  mistral-nemo-12b at full width and
+     depth (40 layers, ~12.2 B params), int8 block-sparse 0.5: the int8
+     pair at 40·7 + 1 = 281 launches per prefill and per decode step, all
+     on the tensor cores, each of its six projection shapes held to its
+     plain version (1e-4), scan ≡ python, two runs equal, prefill ms,
+     decode ms/token and tok/s (median, min, max of 7), continuous dense ≡
+     paged on 8 ``_poisson_draws`` requests, and the int8 pair's device
+     ms per step (the matvec at M = 4, the matmul at M = 256) beside the
+     bound, the plain version and the densified library call (with
+     cuBLAS's dense rows past the 64-row floor at each shape, reported).  moonshot-v1-16b-a3b (MoE: 48 layers, 64 experts, top-6;
+     ~56 GB) at full width and depth unquantized: the same checks and
+     times but the int8 ones (no hand kernel runs on its path), its peak
+     memory, the weight bytes a decode step reads, and one ``truncate:12``
+     k = 4 speculative run that finishes.  internlm2-1.8b, qwen2-vl-2b
+     (also a forward on embeddings with M-RoPE positions) and command-r-35b
+     (int8) and grok-1-314b (MoE, bf16) at full width cut to 2 layers: a
+     short generate, scan ≡ python, the int8 launches and shapes held as
+     above.  hubert-xlarge at full width, 2 layers: a finite encoder
+     forward on frame embeddings, and the engine's refusal with the
+     reference's reason.
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -248,6 +274,7 @@ from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
 from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import cnn, layers, transformer  # noqa: E402
+from repro_torch.models.registry import get_arch  # noqa: E402
 from repro_torch.photonic.accelerator import SonicAccelerator, SonicHWConfig  # noqa: E402
 from repro_torch.photonic.baselines import evaluate_all  # noqa: E402
 from repro_torch.photonic.mapper import cnn_workload, lm_workload  # noqa: E402
@@ -611,16 +638,33 @@ def _step_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
-    cfg, params, dev = eng.cfg, eng.params, eng.device
-    weights = []  # (K, values, scales, indices) for one step's 155 projections
+def _proj_k(cfg, blk: str, proj: str) -> int:
+    """K of a layer projection (mistral's attention is 32 × 128 = 4096 wide,
+    not d_model)."""
+    if (blk, proj) == ("ffn", "wo"):
+        return cfg.d_ff
+    if (blk, proj) == ("attn", "wo"):
+        return cfg.n_heads * cfg.head_dim
+    return cfg.d_model
+
+
+def _int8_step(cfg, params) -> list[tuple]:
+    """(K, values, scales, indices) of one step's int8 projections: every
+    layer's seven, then the LM head."""
+    out = []
     for i in range(cfg.n_layers):
         for blk, proj in PROJECTIONS:
             p = params["layers"][blk][proj]
-            k = cfg.d_ff if (blk, proj) == ("ffn", "wo") else cfg.d_model
-            weights.append((k, p["qvalues"][i], p["qscales"][i], p["qindices"][i]))
+            out.append((_proj_k(cfg, blk, proj), p["qvalues"][i], p["qscales"][i],
+                        p["qindices"][i]))
     head = params["lm_head"]
-    weights.append((cfg.d_model, head["qvalues"], head["qscales"], head["qindices"]))
+    out.append((cfg.d_model, head["qvalues"], head["qscales"], head["qindices"]))
+    return out
+
+
+def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
+    cfg, params, dev = eng.cfg, eng.params, eng.device
+    weights = _int8_step(cfg, params)  # one step's 155 projections
     dense = [BlockSparseWeightInt8(v, s, ix, k // v.shape[2]).dense(torch.bfloat16)
              for k, v, s, ix in weights]
     rows = {"sonic_matvec_int8": 4, "block_sparse_matmul_int8": 256}  # batch 4; 4 × 64
@@ -677,16 +721,11 @@ def phase_fp32_decode_cost(eng, card: str) -> None:
     that dispatch: one step's 155 served projections, replayed from a CUDA
     graph, device ms."""
     cfg, params, dev = eng.cfg, eng.params, eng.device
-    weights = [(cfg.d_ff if (blk, proj) == ("ffn", "wo") else cfg.d_model,
-                tuple(params["layers"][blk][proj][f][i] for f in ("qvalues", "qscales",
-                                                                   "qindices")))
-               for i in range(cfg.n_layers) for blk, proj in PROJECTIONS]
-    head = params["lm_head"]
-    weights.append((cfg.d_model, (head["qvalues"], head["qscales"], head["qindices"])))
+    weights = _int8_step(cfg, params)
     xs = {k: torch.randn((4, k), device=dev) for k in (cfg.d_model, cfg.d_ff)}
 
     def run(fn):
-        return lambda: [fn(xs[k], *w) for k, w in weights]
+        return lambda: [fn(xs[k], *w) for k, *w in weights]
 
     emit({"phase": "fp32_x_decode_cost", "card": card, "rows": 4, "launches": len(weights),
           "cuda_core_matvec_ms": _step_ms(run(sm_kernel.sonic_matvec_int8_kernel)),
@@ -1039,8 +1078,9 @@ def _int8_routes() -> dict:
 
 
 def _cont_engine(eng, layout="dense", quant=False, loop="scan", trace=False):
+    """A continuous-serving engine on ``eng``'s weights, never speculating."""
     sc = dataclasses.replace(eng.sc, max_len=CONT_MAX_LEN, kv_layout=layout,
-                             block_len=CONT_BLOCK_LEN, loop=loop, trace=trace)
+                             block_len=CONT_BLOCK_LEN, loop=loop, trace=trace, spec=None)
     return ServeEngine(eng.arch, eng.params, sc, device=eng.device, cache_quant_int8=quant)
 
 
@@ -1233,13 +1273,16 @@ def _full_acceptance_hist(news, k: int) -> dict[int, int]:
     return dict(sorted(hist.items()))
 
 
-def _spec_engine(eng, k: int, draft: str, layout="dense", quant=False, raw=None):
+def _spec_engine(eng, k: int, draft: str, layout="dense", quant=False, raw=None,
+                 dense=False):
     """A continuous-serving engine (as ``_cont_engine``) that speculates:
     ``raw`` (the served seed's unquantized params) for the self-drafter,
-    which prunes them; the truncated drafters slice the served tree."""
+    which prunes them; the truncated drafters slice the served tree.  With
+    ``dense`` the engine serves ``raw`` unquantized (the dense bf16 path)."""
     spec = SpecConfig(k=k, draft=draft, draft_sparsity=0.75)
+    weights = dict(weight_quant="none", weight_quant_sparsity=0.0) if dense else {}
     sc = dataclasses.replace(eng.sc, max_len=CONT_MAX_LEN, kv_layout=layout,
-                             block_len=CONT_BLOCK_LEN, loop="scan", spec=spec)
+                             block_len=CONT_BLOCK_LEN, loop="scan", spec=spec, **weights)
     return ServeEngine(eng.arch, raw if raw is not None else eng.params, sc,
                        device=eng.device, cache_quant_int8=quant)
 
@@ -1264,8 +1307,8 @@ def _draft_step_timing(e) -> dict:
     for i in range(cfg.n_layers):
         for blk, proj in PROJECTIONS:
             leaf = e.draft_params["layers"][blk][proj]
-            k = cfg.d_ff if (blk, proj) == ("ffn", "wo") else cfg.d_model
-            weights.append((k, leaf["bsvalues"][i], leaf["bsindices"][i]))
+            weights.append((_proj_k(cfg, blk, proj), leaf["bsvalues"][i],
+                            leaf["bsindices"][i]))
     dense = [BlockSparseWeight(v, ix, k // v.shape[2]).dense(torch.bfloat16)
              for k, v, ix in weights]
     xs = {k: torch.randn((m, k), device=e.device, dtype=torch.bfloat16)
@@ -1330,20 +1373,23 @@ def phase_speculative(eng, card: str) -> dict:
     arrivals, p_lens, n_news, prompts = serve._poisson_draws(_cont_args(8, 100.0, 8),
                                                               eng.cfg.vocab_size)
     raw = eng.arch.init_params(torch.Generator(device=dev).manual_seed(0), dev)  # served seed
+    dense = _bf16_kernels(raw)  # the same seed's unquantized weights, in bf16
     full = f"truncate:{eng.cfg.n_layers}"  # a drafter of the whole model
     engines = {"truncate1_dense": _spec_engine(eng, SPEC_K, "truncate:1"),
                "truncate1_paged": _spec_engine(eng, SPEC_K, "truncate:1", "paged"),
                "self075_dense": _spec_engine(eng, SPEC_K, "self", raw=raw),
                "truncate22_dense": _spec_engine(eng, SPEC_K, full),
                "k16_truncate22_dense": _spec_engine(eng, 16, full),
+               "k16_truncate22_dense_bf16": _spec_engine(eng, 16, full, raw=dense, dense=True),
                "k2_int8_kv": _spec_engine(eng, 2, "truncate:1", quant=True),
                "k2_paged": _spec_engine(eng, 2, "truncate:1", "paged"),
                "k2_dense": _spec_engine(eng, 2, "truncate:1")}
     del raw
-    oracles = {"bf16": _cont_engine(eng), "int8_kv": _cont_engine(eng, quant=True)}
+    oracles = {"bf16": _cont_engine(eng), "int8_kv": _cont_engine(eng, quant=True),
+               "dense_bf16": _cont_engine(engines["k16_truncate22_dense_bf16"])}
     want = {key: [o.generate(torch.from_numpy(p)[None].to(dev), int(n))[0].tolist()
                   for p, n in zip(prompts, n_news)] for key, o in oracles.items()}
-    del oracles
+    del oracles, dense
     runs = [("truncate1_dense_scan", "truncate1_dense", dict(segment_mode="scan")),
             ("truncate1_dense_while", "truncate1_dense", dict(segment_mode="while")),
             ("truncate1_paged_scan", "truncate1_paged", dict(segment_mode="scan")),
@@ -1351,6 +1397,8 @@ def phase_speculative(eng, card: str) -> dict:
             ("self075_dense_while", "self075_dense", dict(segment_mode="while")),
             ("truncate22_dense_while", "truncate22_dense", dict(segment_mode="while")),
             ("k16_truncate22_dense_while", "k16_truncate22_dense",
+             dict(segment_mode="while")),
+            ("k16_truncate22_dense_bf16_while", "k16_truncate22_dense_bf16",
              dict(segment_mode="while")),
             ("k2_int8_kv", "k2_int8_kv", {}),
             ("k2_paged_recompute", "k2_paged", dict(n_blocks=CONT_SMALL_POOL, overcommit=2.0,
@@ -1370,7 +1418,8 @@ def phase_speculative(eng, card: str) -> dict:
         torch.cuda.synchronize()
         counts = counters.snapshot()
         st = sched.stats
-        ref = want["int8_kv" if key == "k2_int8_kv" else "bf16"]
+        ref = want[{"k2_int8_kv": "int8_kv", "k16_truncate22_dense_bf16": "dense_bf16"}.get(
+            key, "bf16")]
         differing = sum(h.tokens != w for h, w in zip(handles, ref))
         hist = {int(n): c for n, c in sorted(st["accepted_hist"].items())}
         line = {"k": e.spec.k, "draft": e.spec.draft, "differing_requests": differing,
@@ -1388,7 +1437,11 @@ def phase_speculative(eng, card: str) -> dict:
         if differing or not all(h.done for h in handles):
             raise AssertionError(f"speculative {name}: {differing} requests differ from "
                                  f"generate at B = 1: {line}")
-        need = [INT8_MATVEC, INT8_MATMUL] + (["block_sparse_matmul"] if "self" in key else [])
+        need = ([] if e.sc.weight_quant == "none" else [INT8_MATVEC, INT8_MATMUL]) + (
+            ["block_sparse_matmul"] if "self" in key else [])
+        if e.sc.weight_quant == "none" and line["launches"]:
+            raise AssertionError(f"speculative {name}: the dense weights launched "
+                                 f"{line['launches']}")
         if any(counts[n][0] == 0 for n in need):
             raise AssertionError(f"speculative {name}: launches {line['launches']}, want "
                                  f"{need} each launched")
@@ -1428,7 +1481,7 @@ def phase_speculative(eng, card: str) -> dict:
               for name in ("block_sparse_matmul", INT8_MATVEC, INT8_MATMUL)}
     extras["block_sparse_matmul"]["spec_draft_step"] = draft_step
     for key in ("k2_int8_kv", "k2_paged", "k2_dense", "truncate1_paged", "truncate22_dense",
-                "k16_truncate22_dense"):
+                "k16_truncate22_dense", "k16_truncate22_dense_bf16"):
         del engines[key]
 
     args = _cont_args(32, 100.0, 16)
@@ -2259,6 +2312,316 @@ def phase_pipeline(eng, raw: dict, card: str) -> None:
               "sonic_fps_per_w_ratio": ratios})
 
 
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW, FAMILY_SHORT_NEW = 4, 64, 32, 8
+FAMILY_MAX_LEN = FAMILY_PROMPT + FAMILY_NEW + 1
+# (arch, layers kept: None = the published depth, int8 block-sparse 0.5)
+FAMILIES = (("mistral-nemo-12b", None, True), ("moonshot-v1-16b-a3b", None, False),
+            ("internlm2-1.8b", 2, True), ("qwen2-vl-2b", 2, True),
+            ("command-r-35b", 2, True), ("grok-1-314b", 2, False))
+ENCODER = ("hubert-xlarge", 2)
+DENSE_WINDOWS = (68, 80, 192)  # verify windows past the dense path's 64-row floor
+
+
+def _family_arch(arch_id: str, depth: int | None):
+    """The arch at its published width, ``depth`` layers (None: all), its
+    params stored in bf16 (as the reference's grok-1 and command-r configs
+    store theirs; the compute casts every weight to bf16 either way)."""
+    arch = get_arch(arch_id)
+    cfg = arch.cfg.replace(param_dtype="bfloat16", **({"n_layers": depth} if depth else {}))
+    return dataclasses.replace(arch, cfg=cfg)
+
+
+def _by_shape(weights) -> dict:
+    """The first projection of each distinct (K, N), keyed "KxN"."""
+    shapes: dict = {}
+    for w in weights:
+        shapes.setdefault(f"{w[0]}x{w[1].shape[0] * w[1].shape[3]}", w)
+    return shapes
+
+
+def _hold_int8_shapes(weights, dev) -> dict:
+    """Each distinct projection shape's int8 launch against its plain
+    version, bf16 x, within TOL: the matvec at a decode step's 4 rows, the
+    matmul at a prefill's 256; the largest |Δ| by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {INT8_MATVEC: FAMILY_BATCH, INT8_MATMUL: FAMILY_BATCH * FAMILY_PROMPT}
+    err = dict.fromkeys(KERNELS, 0.0)
+    for k, v, s, ix in _by_shape(weights).values():
+        for name, kn in KERNELS.items():
+            x = torch.randn((rows[name], k), generator=gen, device=dev).bfloat16()
+            got, want = kn["wrapper"](x, v, s, ix), kn["plain"](x, v, s, ix)
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+            err[name] = max(err[name], (got - want).abs().max().item())
+    return {"shapes": list(_by_shape(weights)), "tolerance": TOL, "max_abs_err": err}
+
+
+def _int8_step_timing(weights, dev) -> dict:
+    """The int8 pair's device time for one step's launches (every
+    projection once, bf16 x, replayed from a CUDA graph): the matvec at a
+    decode step's 4 rows, the matmul at a prefill's 256; each beside its
+    plain version, x @ the densified bf16 weight (a library call the port
+    never makes) and the bound (bytes: kept int8 + fp32 scales + int32
+    indices + x (bf16) + y (fp32); operations: 2·M·kept weights), as phase
+    6 times tinyllama's.  Then cuBLAS's rows past the dense path's 64-row
+    floor at each distinct shape (reported).  By kernel name."""
+    ks = sorted({k for k, *_ in weights})
+    dense = [BlockSparseWeightInt8(v, s, ix, k // v.shape[2]).dense(torch.bfloat16)
+             for k, v, s, ix in weights]
+    out = {}
+    for name, m in ((INT8_MATVEC, FAMILY_BATCH), (INT8_MATMUL, FAMILY_BATCH * FAMILY_PROMPT)):
+        kn = KERNELS[name]
+        xs = {k: torch.randn((m, k), device=dev, dtype=torch.bfloat16) for k in ks}
+        n_bytes = n_ops = bound_s = 0.0
+        for k, v, s, ix in weights:
+            b = (v.numel() + 4 * (s.numel() + ix.numel()) + 2 * m * k
+                 + 4 * m * v.shape[0] * v.shape[3])
+            ops = 2.0 * m * v.numel()
+            n_bytes, n_ops = n_bytes + b, n_ops + ops
+            bound_s += max(b / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+
+        def run(fn):
+            return lambda: [fn(xs[k], v, s, ix) for k, v, s, ix in weights]
+
+        kn["wrapper"].routes = dict.fromkeys(build.ROUTES, 0)
+        line = {"rows": m, "launches_per_step": len(weights),
+                "kept_weight_bytes": sum(v.numel() for _, v, _, _ in weights),
+                "ms": _step_ms(run(kn["wrapper"])),
+                "plain_ms": _step_ms(run(kn["plain"]), reps=2),
+                "bound_ms": bound_s * 1e3,
+                "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / BF16_TENSOR_FLOPS
+                else "operations",
+                "library_ms": _step_ms(lambda: [xs[k] @ d for (k, *_), d in
+                                                zip(weights, dense)])}
+        routes = dict(kn["wrapper"].routes)
+        if routes.get(build.CUDA_CORES, 0) or not routes.get(build.TENSOR_CORES, 0):
+            raise AssertionError(f"families: the timed {name} took routes {routes}")
+        line["tflops"] = n_ops / (line["ms"] * 1e-3) / 1e12
+        line["gb_s"] = n_bytes / (line["ms"] * 1e-3) / 1e9
+        out[name] = line
+    firsts: dict = {}
+    for (k, v, *_), d in zip(weights, dense):
+        firsts.setdefault(f"{k}x{v.shape[0] * v.shape[3]}", d)
+    x = torch.randn((max(DENSE_WINDOWS), max(ks)), device=dev, dtype=torch.bfloat16)
+    out["dense_rows_past_64"] = {
+        shape: _rows_across(lambda xx, d=d: layers.dense_apply({"kernel": d}, xx),
+                            x[:, :d.shape[0]], DENSE_WINDOWS) for shape, d in firsts.items()}
+    return out
+
+
+def _weight_bytes(params) -> int:
+    """Bytes of every weight a decode step reads: all leaves but the
+    embedding table (of which it reads B rows).  An MoE step reads every
+    expert: the dispatch runs each expert's capacity slots."""
+    def walk(t):
+        return (sum(walk(v) for v in t.values()) if isinstance(t, dict)
+                else t.numel() * t.element_size())
+    return sum(walk(v) for k, v in params.items() if k != "embed")
+
+
+def _family_continuous(eng, vocab: int) -> dict:
+    """8 requests of ``_poisson_draws`` through ``ContinuousScheduler``
+    (n_slots 4, segment_len 8, max_len 128), dense and paged: the same
+    tokens (paged ≡ dense)."""
+    _, _, n_news, prompts = serve._poisson_draws(_cont_args(8, 100.0, 8), vocab)
+    tokens, out = {}, {}
+    for layout in ("dense", "paged"):
+        t0 = time.perf_counter()
+        e = _cont_engine(eng, layout)
+        sched = ContinuousScheduler(e, n_slots=4, segment_len=8)
+        handles = [sched.submit(p, int(n)) for p, n in zip(prompts, n_news)]
+        sched.run()
+        torch.cuda.synchronize()
+        if not all(h.done for h in handles):
+            raise AssertionError(f"families continuous {layout}: not every request finished")
+        tokens[layout] = [h.tokens for h in handles]
+        out[layout] = {"segments": sched.stats["segments"], "captures": _slot_captures_once(e),
+                       "seconds": time.perf_counter() - t0}
+    differing = sum(a != b for a, b in zip(tokens["dense"], tokens["paged"]))
+    if differing:
+        raise AssertionError(f"families continuous: {differing} requests differ paged vs dense")
+    return {"requests": len(prompts), "paged_equals_dense": True,
+            "tokens": sum(len(t) for t in tokens["dense"]), **out}
+
+
+def _family_spec(eng, vocab: int) -> dict:
+    """One k = 4 speculative run (dense, while) of the same 8 requests, the
+    drafter the first quarter of the layers (``truncate:12`` of 48): it must
+    finish every request."""
+    _, _, n_news, prompts = serve._poisson_draws(_cont_args(8, 100.0, 8), vocab)
+    t0 = time.perf_counter()
+    draft = f"truncate:{max(eng.cfg.n_layers // 4, 1)}"
+    e = _spec_engine(eng, SPEC_K, draft)
+    sched = ContinuousScheduler(e, n_slots=4, segment_len=8, segment_mode="while")
+    handles = [sched.submit(p, int(n)) for p, n in zip(prompts, n_news)]
+    sched.run()
+    torch.cuda.synchronize()
+    st = sched.stats
+    if not all(h.done for h in handles) or not st["spec_steps"]:
+        raise AssertionError(f"families spec {draft}: did not finish: {st}")
+    return {"k": SPEC_K, "draft": draft, "requests": len(prompts),
+            "spec_steps": st["spec_steps"],
+            "accepted_per_round": st["spec_emitted"] / st["spec_steps"],
+            "accepted_hist": {int(n): c for n, c in sorted(st["accepted_hist"].items())},
+            "captures": _slot_captures_once(e), "seconds": time.perf_counter() - t0}
+
+
+def _graphed_counts(counts) -> dict:
+    return {name: [n, {r: v for r, v in routes.items() if v}]
+            for name, (n, routes) in counts.items() if n}
+
+
+def _family_serve(arch_id: str, depth: int | None, quant: bool, card: str, dev) -> dict:
+    """One family at full width: random bf16 params from a seeded generator
+    on the card, an engine (int8 block-sparse 0.5 or unquantized), greedy
+    batch 4 × prompt 64 on the "scan" loop (prefill and decode step as CUDA
+    graphs), the counters zeroed just before and read just after.  Held:
+    the int8 pair at n_layers·7 + 1 launches per prefill and per decode
+    step, all on the tensor cores (no hand kernel on an unquantized path),
+    tokens in range, a second run and the "python" loop equal; each int8
+    shape against its plain version.  At full depth also: prefill ms,
+    decode ms/token and tok/s (median, min, max of 7), continuous dense ≡
+    paged, and for MoE a speculative run; for int8 the pair's step times.
+    Returns the line and what the kernels line adds."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    arch = _family_arch(arch_id, depth)
+    cfg = arch.cfg
+    n_new = FAMILY_NEW if depth is None else FAMILY_SHORT_NEW
+    raw = arch.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    line = {"phase": "families", "card": card, "model": arch_id, "layers": cfg.n_layers,
+            "published_layers": get_arch(arch_id).cfg.n_layers,
+            "params": tree_param_count(raw), "param_dtype": cfg.param_dtype,
+            "weights": "int8 block-sparse 0.5" if quant else "bf16 (unquantized)",
+            "init_seconds": time.perf_counter() - t0}
+    sc = ServeConfig(max_len=FAMILY_MAX_LEN, **(
+        dict(weight_quant="int8", weight_quant_sparsity=0.5) if quant else {}))
+    t1 = time.perf_counter()
+    eng = ServeEngine(arch, raw, sc, device=dev)
+    torch.cuda.synchronize()
+    line["engine_seconds"] = time.perf_counter() - t1
+    del raw
+    line["decode_weight_bytes"] = _weight_bytes(eng.params)
+    prompts = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    _zero_counts()
+    tokens = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    counts = counters.snapshot()
+    graphs = eng.graph_launches()
+    graphed = {"prefill": _graphed_counts(graphs["prefill"][(FAMILY_BATCH, FAMILY_PROMPT)]),
+               "decode_step": _graphed_counts(graphs["decode"][FAMILY_BATCH])}
+    n_proj = cfg.n_layers * len(PROJECTIONS) + 1
+    tc = {build.TENSOR_CORES: n_proj}
+    want = ({"prefill": {INT8_MATMUL: [n_proj, tc]}, "decode_step": {INT8_MATVEC: [n_proj, tc]}}
+            if quant else {"prefill": {}, "decode_step": {}})
+    launches = {n: c for n, (c, _) in counts.items() if c}
+    want_launches = ({INT8_MATMUL: n_proj, INT8_MATVEC: n_proj * (n_new - 1)} if quant else {})
+    if graphed != want or launches != want_launches:
+        raise AssertionError(f"families {arch_id}: graphed {graphed}, launches {launches}; "
+                             f"want {want}, {want_launches}")
+    if tokens.shape != (FAMILY_BATCH, n_new) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"families {arch_id}: bad tokens {tuple(tokens.shape)}")
+    if not torch.equal(eng.generate(prompts, n_new), tokens):
+        raise AssertionError(f"families {arch_id}: a second run gave other tokens")
+    eager = ServeEngine(arch, eng.params, dataclasses.replace(sc, loop="python"), device=dev)
+    if not torch.equal(eager.generate(prompts, n_new), tokens):
+        raise AssertionError(f"families {arch_id}: the python loop gave other tokens")
+    line.update({"batch": FAMILY_BATCH, "prompt_len": FAMILY_PROMPT, "new_tokens": n_new,
+                 "launches": launches, "graphed_launches": graphed,
+                 "captures": _captures(eng), "scan_equals_python": True,
+                 "two_runs_equal": True, "tokens_row0": tokens[0].tolist()})
+    extras: dict = {}
+    if arch.input_kind == "embeds+mrope":  # qwen2-vl's frontend stub: embeds + M-RoPE rows
+        pos = torch.arange(FAMILY_PROMPT, device=dev)
+        positions = torch.stack([pos, pos // 8, pos % 8])[None].expand(FAMILY_BATCH, 3, -1)
+        embeds = torch.randn((FAMILY_BATCH, FAMILY_PROMPT, cfg.d_model), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(2))
+        logits, _ = arch.forward(eng.params, embeds=embeds, positions=positions)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"families {arch_id}: M-RoPE forward not finite")
+        line["mrope_forward"] = {"shape": list(logits.shape), "finite": True}
+    if quant:
+        weights = _int8_step(cfg, eng.params)
+        line["int8_vs_plain"] = _hold_int8_shapes(weights, dev)
+    if depth is None:
+        timing = _loop_timing(eng, prompts, n_new)
+        line.update({k: timing[k]["median"] for k in ("prefill_ms", "decode_ms_per_token",
+                                                      "tok_s")})
+        line["spread_of_7"] = timing
+        line["decode_weight_bound_ms"] = line["decode_weight_bytes"] / HBM_BYTES_PER_S * 1e3
+        del eager
+        line["continuous"] = _family_continuous(eng, cfg.vocab_size)
+        if cfg.n_experts:
+            line["speculative"] = _family_spec(eng, cfg.vocab_size)
+        if quant:
+            line["int8_step_timing"] = step = _int8_step_timing(weights, dev)
+            for name in KERNELS:
+                extras[name] = {arch_id: {
+                    k: step[name][k] for k in ("rows", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms",
+                                                 "launches_per_step")} | {
+                    "launches": launches[name],
+                    "max_abs_err": line["int8_vs_plain"]["max_abs_err"][name]}}
+    line["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    return extras
+
+
+def _family_encoder(card: str, dev) -> None:
+    """hubert-xlarge at full width, 2 layers: a forward on frame embeddings
+    (the frontend's stub), bidirectional; the engine refuses it with the
+    reference's reason."""
+    t0 = time.perf_counter()
+    arch = _family_arch(*ENCODER)
+    cfg = arch.cfg
+    params = arch.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    embeds = torch.randn((FAMILY_BATCH, FAMILY_PROMPT, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    _zero_counts()
+    logits, _ = arch.forward(params, embeds=embeds)
+    torch.cuda.synchronize()
+    launches = {n: c for n, (c, _) in counters.snapshot().items() if c}
+    if tuple(logits.shape) != (FAMILY_BATCH, FAMILY_PROMPT, cfg.vocab_size) or not (
+            torch.isfinite(logits).all()) or launches:
+        raise AssertionError(f"families hubert: logits {tuple(logits.shape)}, launches "
+                             f"{launches}")
+    try:
+        ServeEngine(arch, params, ServeConfig(), device=dev)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("families hubert: the engine served an encoder")
+    if "encoder-only arch has no decode step" not in refusal:
+        raise AssertionError(f"families hubert: refused with {refusal!r}")
+    emit({"phase": "families", "card": card, "model": ENCODER[0], "layers": cfg.n_layers,
+          "published_layers": get_arch(ENCODER[0]).cfg.n_layers,
+          "params": tree_param_count(params), "forward_embeds": list(embeds.shape),
+          "logits_shape": list(logits.shape), "finite": True, "engine_refusal": refusal,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_families(card: str, dev) -> dict:
+    """Every family of ``models/transformer.py`` on the card, after the
+    tinyllama engines are released: mistral-nemo-12b (int8 0.5) and
+    moonshot-v1-16b-a3b (MoE, bf16) at full width and depth; internlm2-1.8b,
+    qwen2-vl-2b, command-r-35b (int8 0.5) and grok-1-314b (MoE, bf16) at
+    full width cut to 2 layers; hubert-xlarge's encoder forward.  Returns
+    what the kernels line adds."""
+    t0 = time.perf_counter()
+    extras: dict = {}
+    for arch_id, depth, quant in FAMILIES:
+        for name, entry in _family_serve(arch_id, depth, quant, card, dev).items():
+            extras.setdefault(name, {}).setdefault("families", {}).update(entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    _family_encoder(card, dev)
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t0})
+    return extras
+
+
 @torch.inference_mode()
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2295,6 +2658,12 @@ def main() -> None:
     kernels.append(phase_c3_timing(operands, c3_launches, c3_err))
     del operands
     phase_pipeline(eng, raw, card)
+    del eng, eager, raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_extras = phase_families(card, dev)
+    for entry in kernels:
+        entry.update(family_extras.get(entry["name"], {}))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the reference's param tree with every leaf already
 a numpy array (``np.array(leaf)`` of each JAX array: a writable copy, since
 ``np.asarray`` of a JAX array is read-only) and returns the same nesting of
-torch tensors on ``device``, dtypes kept: the stacked (L, …) layer leaves,
-the ``qvalues`` / ``qscales`` / ``qindices`` leaves of a quantized tree
-(int8, fp32, int32), the embedding, norm scales and fp kernels.  Lists and
+torch tensors on ``device``, dtypes kept (bf16 too, for the configs whose
+``param_dtype`` is bfloat16): the stacked (L, …) layer leaves, the MoE
+block's router and (L, E, …) expert stacks, the ``qvalues`` / ``qscales``
+/ ``qindices`` leaves of a quantized tree (int8, fp32, int32), the
+embedding, norm scales and biases (``norm_bias``, ``bias``) and fp kernels.  Lists and
 tuples are walked as dicts are (the CNNs' ``{"conv": [...], "fc": [...]}``).
 
 ``linear_params_from_jax`` does the same for one converted linear layer:
@@ -33,6 +35,9 @@ from repro_torch.kernels.sonic_matmul.ops import SonicWeight
 def _tensor(a, device) -> torch.Tensor:
     if not isinstance(a, np.ndarray):
         raise TypeError(f"expected a numpy array leaf, got {type(a).__name__}")
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot read:
+        # its 16 bits as uint16, viewed back as torch's bf16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
 

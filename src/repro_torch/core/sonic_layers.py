@@ -284,12 +284,15 @@ def sparse_draft_params(
     which ``models.layers.dense_apply`` runs on ``block_sparse_matmul``: the
     reference densifies the same blocks again and multiplies by them cast
     to x's type, so storing them in the compute type keeps its weights.
-    Embeddings and norms are shared unchanged, and so is the LM head but
-    that, with ``dtype``, its kernel is cast to it once (the reference
-    casts it at every use).  ``sparsity=0.0`` keeps every block (an exact
-    conversion)."""
+    A projection's other leaves (its ``bias``) ride along.  An MoE router's
+    (L, d, E) kernel is pruned as every 3-D leaf is, and densified again in
+    its own type (fp32), as the reference's: ``models.moe._router`` reads a
+    dense fp32 kernel.  The 4-D expert stacks, embeddings and norms are
+    shared unchanged, and so is the LM head but that, with ``dtype``, its
+    kernel is cast to it once (the reference casts it at every use).
+    ``sparsity=0.0`` keeps every block (an exact conversion)."""
 
-    def convert(w: torch.Tensor) -> dict:
+    def convert(w: torch.Tensor, dtype=dtype) -> dict:
         blk = block or _auto_block(w.shape[1], w.shape[2])
         vals, idx = [], []
         for i in range(w.shape[0]):
@@ -306,12 +309,16 @@ def sparse_draft_params(
             idx.append(bs.indices)
         return {"bsvalues": torch.stack(vals), "bsindices": torch.stack(idx)}
 
-    def walk(node):
+    def walk(node, name: str = ""):
         if not isinstance(node, dict):
             return node
-        if getattr(node.get("kernel"), "ndim", 0) == 3:
-            return convert(node["kernel"])
-        return {key: walk(val) for key, val in node.items()}
+        w = node.get("kernel")
+        if getattr(w, "ndim", 0) == 3:
+            rest = {key: val for key, val in node.items() if key != "kernel"}
+            if name == "router":
+                return {**rest, "kernel": draft_leaf_dense(convert(w, None), w.shape[1])}
+            return {**rest, **convert(w)}
+        return {key: walk(val, key) for key, val in node.items()}
 
     out = {**params, "layers": walk(params["layers"])}
     head = params.get("lm_head", {})
@@ -370,9 +377,19 @@ def quantize_serve_params(
          "qindices": (..., Nb, r) int32}
 
     with the leading L axis kept for stacked kernels.  Every other leaf
-    (embeddings, norm scales) rides along unchanged.  ``sparsity=0.0`` keeps
-    every block: pure quantization, no pruning.  Runs on whatever device the
-    weights are on."""
+    (embeddings, norm scales, biases) rides along unchanged.
+    ``sparsity=0.0`` keeps every block: pure quantization, no pruning.  Runs
+    on whatever device the weights are on.
+
+    An MoE tree is refused (``ValueError``): the walk would rewrite the
+    router's ``{"kernel": (L, d, E)}`` too, which ``models.moe._router``
+    reads as a dense kernel (the reference fails there, later, with
+    ``KeyError: 'kernel'``)."""
+    moe = params.get("layers", {}).get("moe")
+    if isinstance(moe, dict) and "kernel" in moe.get("router", {}):
+        raise ValueError("weight_quant='int8' would rewrite the MoE router's kernel "
+                         "(layers/moe/router/kernel), which the router reads dense: "
+                         "serve an MoE model with weight_quant='none'")
 
     def quant_one(w: torch.Tensor) -> dict:
         blk = block or _auto_block(w.shape[0], w.shape[1])

@@ -9,8 +9,11 @@
            and request 0's tokens print live, then tok/s and p50/p95
            latency and TTFT.
 
-Weights are random, made from ``--seed`` on the device; batch prompts from
-``--seed + 1``.  ``--loop`` picks the decode loop (``scan``, the default:
+``--arch`` takes every config id: the transformer's families serve
+(hubert, encoder-only, is refused with the reference's reason, and int8
+on an MoE model with a ``ValueError``); zamba2-7b and rwkv6-3b are not
+ported and raise.  Weights are random, made from ``--seed`` on the device;
+batch prompts from ``--seed + 1``.  ``--loop`` picks the decode loop (``scan``, the default:
 one CUDA graph per decode step, replayed; ``while``: the same with an eos
 early exit; ``python``: the eager loop; on the poisson workload "python"
 runs the slot programs eagerly) and ``--cache-quant-int8`` the int8 KV

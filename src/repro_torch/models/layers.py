@@ -1,8 +1,8 @@
-"""Decoder layers: RMSNorm, RoPE, GQA attention (chunked online-softmax
-prefill, cached decode and verify windows, paged and int8 KV caches),
-SwiGLU FFN, embedding and LM head.
+"""Shared model layers: RMSNorm / layernorm, RoPE / M-RoPE, GQA attention
+(chunked online-softmax prefill, cached decode and verify windows, paged
+and int8 KV caches), SwiGLU and gelu-MLP FFNs, embedding and LM head.
 
-The port of ``repro.models.layers`` for the dense decoder path.
+The port of ``repro.models.layers``.
 
 Conventions:
   * params are nested dicts of tensors; init fns mirror apply fns and take
@@ -65,51 +65,79 @@ def _normal(gen: torch.Generator, shape, dtype, scale: float, device) -> torch.T
     return (w * scale).to(dtype)
 
 
-def dense_init(gen, d_in: int, d_out: int, dtype, device, lead=()) -> Params:
-    return {"kernel": _normal(gen, (*lead, d_in, d_out), dtype, d_in**-0.5, device)}
+def dense_init(gen, d_in: int, d_out: int, dtype, device, lead=(), bias: bool = False) -> Params:
+    p = {"kernel": _normal(gen, (*lead, d_in, d_out), dtype, d_in**-0.5, device)}
+    if bias:
+        p["bias"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
 
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "qvalues" in p:  # int8 block-sparse serving weights: the projection
         # dict was rewritten by ``quantize_serve_params``; the kernels
         # contract only the kept blocks against their per-block scales
-        return serve_quant_apply(p, x)
-    if "bsvalues" in p:  # the self-drafter's block-sparse weights
+        y = serve_quant_apply(p, x)
+    elif "bsvalues" in p:  # the self-drafter's block-sparse weights
         # (``sparse_draft_params``), on ``block_sparse_matmul``
-        return draft_apply(p, x)
-    w = p["kernel"].to(x.dtype)
-    y = at_least_rows(lambda xx: xx @ w, x.reshape(-1, x.shape[-1]), _row_floor(x))
-    return y.reshape(*x.shape[:-1], w.shape[-1])
+        y = draft_apply(p, x)
+    else:
+        w = p["kernel"].to(x.dtype)
+        y = at_least_rows(lambda xx: xx @ w, x.reshape(-1, x.shape[-1]), _row_floor(x))
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
 
 
 def norm_init(cfg: ModelConfig, device, lead=()) -> Params:
-    return {"scale": torch.ones((*lead, cfg.d_model), dtype=torch.float32, device=device)}
+    p = {"scale": torch.ones((*lead, cfg.d_model), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["norm_bias"] = torch.zeros((*lead, cfg.d_model), dtype=torch.float32, device=device)
+    return p
 
 
 def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in fp32, back to x's type.  The mean runs over at least the
-    row floor (a CUDA reduction picks its threads by the number of rows)."""
+    """RMSNorm, or layernorm where ``p`` has a ``norm_bias``, in fp32, back
+    to x's type.  Each mean runs over at least the row floor (a CUDA
+    reduction picks its threads by the number of rows)."""
 
-    def rms(xf: torch.Tensor) -> torch.Tensor:
-        return (xf * xf).mean(-1, keepdim=True)
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        m = at_least_rows(lambda tt: tt.mean(-1, keepdim=True), t.reshape(-1, t.shape[-1]),
+                          _row_floor(x))
+        return m.reshape(*t.shape[:-1], 1)
 
     xf = x.float()
-    ms = at_least_rows(rms, xf.reshape(-1, x.shape[-1]), _row_floor(x))
-    return (xf * torch.rsqrt(ms.reshape(*x.shape[:-1], 1) + eps) * p["scale"]).to(x.dtype)
+    if "norm_bias" in p:  # layernorm
+        mu = mean(xf)
+        var = mean((xf - mu) ** 2)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["norm_bias"]
+    else:  # rmsnorm
+        y = xf * torch.rsqrt(mean(xf * xf) + eps) * p["scale"]
+    return y.to(x.dtype)
 
 
 # ----------------------------------------------------------------- RoPE
 
 
 def rope_angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """positions (B, S) → angles (B, S, head_dim/2) fp32 (standard RoPE).
-    M-RoPE positions (B, 3, S) are not ported."""
-    if positions.dim() != 2:
-        raise NotImplementedError("M-RoPE positions (B, 3, S) are not ported")
+    """positions (B, S) or (B, 3, S) → angles (B, S, head_dim/2) fp32.
+
+    Standard RoPE for (B, S); M-RoPE (qwen2-vl) for (B, 3, S): the dh/2
+    frequency slots are split into ``mrope_sections`` = (t, h, w) groups,
+    each driven by its own position row."""
     half = cfg.head_dim // 2
     slots = torch.arange(0, half, dtype=torch.float32, device=positions.device)
     inv_freq = cfg.rope_theta ** (-slots / half)
-    return positions[..., None].float() * inv_freq
+    if positions.dim() == 2:  # (B, S)
+        return positions[..., None].float() * inv_freq
+    st, sh, sw = cfg.mrope_sections
+    if st + sh + sw != half:
+        raise ValueError(f"mrope_sections {cfg.mrope_sections} must sum to head_dim / 2 "
+                         f"= {half}")
+    slot = torch.arange(half, device=positions.device)
+    section = (slot >= st).long() + (slot >= st + sh).long()  # 0, 1, 2 by (t, h, w)
+    pos_per_slot = positions.index_select(1, section)  # (B, half, S)
+    return pos_per_slot.transpose(1, 2).float() * inv_freq
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -126,12 +154,12 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 def attention_init(gen, cfg: ModelConfig, device, lead=()) -> Params:
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dt = getattr(torch, cfg.param_dtype)
+    dt, bias = getattr(torch, cfg.param_dtype), cfg.use_bias
     return {
-        "wq": dense_init(gen, d, h * dh, dt, device, lead),
-        "wk": dense_init(gen, d, kh * dh, dt, device, lead),
-        "wv": dense_init(gen, d, kh * dh, dt, device, lead),
-        "wo": dense_init(gen, h * dh, d, dt, device, lead),
+        "wq": dense_init(gen, d, h * dh, dt, device, lead, bias),
+        "wk": dense_init(gen, d, kh * dh, dt, device, lead, bias),
+        "wv": dense_init(gen, d, kh * dh, dt, device, lead, bias),
+        "wo": dense_init(gen, h * dh, d, dt, device, lead, bias),
     }
 
 
@@ -362,12 +390,13 @@ def attention_apply(
     p: Params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S) or (B, 3, S) for mrope
     *,
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # int8 cache
     cache_pos: torch.Tensor | None = None,  # (B,)
     block_table: torch.Tensor | None = None,  # (B, MB) — paged cache
+    causal: bool = True,
     decode_chunk: bool = False,  # speculative-verify window
     query_rows: int = 0,  # decode-style attention's padded query rows
 ) -> tuple[torch.Tensor, tuple | None]:
@@ -396,19 +425,24 @@ def attention_apply(
         position and head as written; every prefill, whole-prompt or
         chunk-resume, attends the dequantized cache it has just written,
         and decode and verify attend the same values.
-    The reference's mesh constraints and M-RoPE are not ported.
+    M-RoPE positions (B, 3, S) rotate q and k by their sections; the flash
+    paths mask by the temporal row, ``positions[:, 0]``, as the reference.
+    ``causal=False`` (an encoder) drops the causal mask of the flash paths.
+    The reference's mesh constraints are not ported.
     """
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense_apply(p["wq"], x).reshape(b, s, h, dh)
     k = dense_apply(p["wk"], x).reshape(b, s, kh, dh)
     v = dense_apply(p["wv"], x).reshape(b, s, kh, dh)
-    ang = rope_angles(cfg, positions)
-    q = apply_rope(q, ang)
-    k = apply_rope(k, ang)
+    if cfg.pos_enc in ("rope", "mrope"):
+        ang = rope_angles(cfg, positions)
+        q = apply_rope(q, ang)
+        k = apply_rope(k, ang)
+    pos2d = positions if positions.dim() == 2 else positions[:, 0, :]
 
     if cache is None:
-        out = flash_attention(q, k, v, positions, positions, q_chunk=min(512, s))
+        out = flash_attention(q, k, v, pos2d, pos2d, causal=causal, q_chunk=min(512, s))
         return dense_apply(p["wo"], out.reshape(b, s, h * dh)), None
     if cache_pos is None and (s == 1 or block_table is not None):
         raise ValueError("a decode step (S == 1) and a paged forward need cache_pos")
@@ -445,12 +479,12 @@ def attention_apply(
     if s == 1 or (decode_chunk and cache_pos is not None):
         out = decode_attention(q, k_att, v_att, cache_pos, query_rows)
     elif cache_pos is not None or quant:  # chunk-resume, or any int8-KV prefill
-        out = flash_attention(q, k_att, v_att, positions, _kv_positions(b, s_max, x.device),
-                              q_chunk=PREFILL_QUERY_CHUNK)
+        out = flash_attention(q, k_att, v_att, pos2d, _kv_positions(b, s_max, x.device),
+                              causal=causal, q_chunk=PREFILL_QUERY_CHUNK)
     else:  # whole-prompt prefill: the fresh (exact) k/v over the cache length
-        out = flash_attention(q, _pad_axis1(k, s_max), _pad_axis1(v, s_max), positions,
+        out = flash_attention(q, _pad_axis1(k, s_max), _pad_axis1(v, s_max), pos2d,
                               _kv_positions(b, s_max, x.device),
-                              q_chunk=PREFILL_QUERY_CHUNK)
+                              causal=causal, q_chunk=PREFILL_QUERY_CHUNK)
     new_cache = (k_c, v_c, ks_c, vs_c) if quant else (k_c, v_c)
     return dense_apply(p["wo"], out.reshape(b, s, h * dh)), new_cache
 
@@ -459,17 +493,31 @@ def attention_apply(
 
 
 def ffn_init(gen, cfg: ModelConfig, device, lead=()) -> Params:
-    dt = getattr(torch, cfg.param_dtype)
+    dt, d, f, bias = getattr(torch, cfg.param_dtype), cfg.d_model, cfg.d_ff, cfg.use_bias
+    if cfg.ffn == "swiglu":
+        return {
+            "wi": dense_init(gen, d, f, dt, device, lead, bias),
+            "wg": dense_init(gen, d, f, dt, device, lead, bias),
+            "wo": dense_init(gen, f, d, dt, device, lead, bias),
+        }
     return {
-        "wi": dense_init(gen, cfg.d_model, cfg.d_ff, dt, device, lead),
-        "wg": dense_init(gen, cfg.d_model, cfg.d_ff, dt, device, lead),
-        "wo": dense_init(gen, cfg.d_ff, cfg.d_model, dt, device, lead),
+        "wi": dense_init(gen, d, f, dt, device, lead, bias),
+        "wo": dense_init(gen, f, d, dt, device, lead, bias),
     }
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def ffn_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: wo(silu(wi x) * wg x)."""
-    h = torch.nn.functional.silu(dense_apply(p["wi"], x)) * dense_apply(p["wg"], x)
+    """SwiGLU, wo(silu(wi x) * wg x), where ``p`` has a ``wg``; else the
+    gelu MLP, wo(gelu(wi x))."""
+    if "wg" in p:
+        h = F.silu(dense_apply(p["wi"], x)) * dense_apply(p["wg"], x)
+    else:
+        h = gelu(dense_apply(p["wi"], x))
     return dense_apply(p["wo"], h)
 
 
@@ -492,3 +540,8 @@ def lm_head_init(gen, cfg: ModelConfig, device) -> Params:
 
 def lm_head_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return dense_apply(p, x)
+
+
+def tied_head_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The tied LM head: x @ embedding.T in x's type (``tie_embeddings``)."""
+    return dense_apply({"kernel": p["embedding"].to(x.dtype).T}, x)

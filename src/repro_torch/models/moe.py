@@ -1,0 +1,199 @@
+"""Token-choice top-k MoE.
+
+The port of ``repro.models.moe`` for one device: the router with its
+layout-deterministic selection (``_selection_logits``), capacity-bounded
+dispatch with the reference's drop semantics, the batched expert FFN and
+the combine, and the all-experts oracle ``moe_apply_dense``.
+
+Dispatch, as in the reference: per batch row, token → expert assignments
+in expert-major, token-minor order fill an (E, C) slot buffer, C =
+ceil(S·k/E · capacity_factor); an assignment past its expert's capacity
+is dropped (Switch / GShard), an empty slot computes on zeros and is never
+read back.  Every shape here is fixed by (B, S, E, k, C), so a forward can
+be captured in a CUDA graph: an assignment's slot is the number of earlier
+assignments to its expert (a cumulative sum of one-hot rows, in place of
+the reference's stable argsort and bincount), and the buffer is filled by
+one scatter whose kept targets are distinct (dropped ones land in an
+overflow column that is cut off).  The combine sums each token's k slot
+outputs in ascending expert order, one add at a time in x's type, where
+the reference scatter-adds the slots (``segment_sum``) in the same
+expert-major order: no atomics, so two runs give the same bits.
+
+Not ported (mesh and training): ``expert_split_factor``, ``_virtualize``,
+``_split_weights`` and the mesh constraints of ``moe_apply``, and
+``moe_load_balance_loss``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Params, _normal, _row_floor, gelu
+from repro_torch.utils.rows import at_least_rows
+
+
+def _normal_stack(gen, shape, dtype, scale: float, device) -> torch.Tensor:
+    """``layers._normal`` of ``shape``, drawn one leading slice at a time
+    (an expert stack at full width would need its whole size again in
+    fp32 at once)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type != "meta":
+        for i in range(shape[0]):
+            out[i] = _normal(gen, shape[1:], dtype, scale, device)
+    return out
+
+
+def moe_init(gen, cfg: ModelConfig, device, lead=()) -> Params:
+    dt = getattr(torch, cfg.param_dtype)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": {"kernel": _normal(gen, (*lead, d, e), torch.float32, d**-0.5, device)},
+        "wi": _normal_stack(gen, (*lead, e, d, f), dt, d**-0.5, device),
+        "wo": _normal_stack(gen, (*lead, e, f, d), dt, f**-0.5, device),
+    }
+    if cfg.ffn == "swiglu":
+        p["wg"] = _normal_stack(gen, (*lead, e, d, f), dt, d**-0.5, device)
+    return p
+
+
+# Deterministic routing (the reference's): the SELECTION copy of the fp32
+# router logits is snapped to a _ROUTER_QUANTUM grid, and exact grid ties
+# are broken by a strictly decreasing epsilon·expert_id bias (sub-quantum,
+# so it never reorders distinct grid values).  Gates come from the softmax
+# of the unquantized logits.
+_ROUTER_QUANTUM = 1e-3
+_TIEBREAK_EPS = 1e-6
+
+
+def _selection_logits(logits: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (…, E) → the layout-deterministic selection copy.  The
+    quantum divides as a tensor on the logits' device (filled there, so a
+    CUDA graph can capture it), so the card divides as the reference does
+    (a Python scalar would be a multiply by its reciprocal there)."""
+    e = logits.shape[-1]
+    quantum = torch.full((), _ROUTER_QUANTUM, dtype=torch.float32, device=logits.device)
+    snapped = torch.round(logits / quantum) * _ROUTER_QUANTUM
+    ids = torch.arange(e, dtype=torch.float32, device=logits.device)
+    return snapped - _TIEBREAK_EPS * ids
+
+
+def _router(p: Params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) → (gates (B, S, k) fp32, experts (B, S, k) int64).
+
+    Softmax-then-top-k with gate renormalization; the router's product in
+    fp32 (its rows padded to the row floor, as ``layers.dense_apply``'s);
+    the experts chosen on the selection logits, the gates read from the
+    smooth probabilities."""
+    w = p["router"]["kernel"].float()
+    xf = x.float()
+    logits = at_least_rows(lambda xx: xx @ w, xf.reshape(-1, xf.shape[-1]), _row_floor(x))
+    logits = logits.reshape(*x.shape[:-1], w.shape[-1])
+    experts = torch.topk(_selection_logits(logits), cfg.experts_per_token, dim=-1).indices
+    probs = torch.softmax(logits, dim=-1)
+    gates = torch.gather(probs, -1, experts)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, experts
+
+
+def _expert_ffn(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """h (E, T, d) → (E, T, d), the batched per-expert FFN in h's type."""
+    dt = h.dtype
+    hi = torch.bmm(h, p["wi"].to(dt))
+    if "wg" in p:
+        hi = F.silu(hi) * torch.bmm(h, p["wg"].to(dt))
+    else:
+        hi = gelu(hi)
+    return torch.bmm(hi, p["wo"].to(dt))
+
+
+def capacity(cfg: ModelConfig, s: int, capacity_factor: float | None = None) -> int:
+    """Slots per expert and batch row: ceil(S·k/E · cf), at least 1."""
+    cf = capacity_factor or cfg.moe_capacity_factor
+    return max(int(math.ceil(s * cfg.experts_per_token / cfg.n_experts * cf)), 1)
+
+
+def _slots(experts: torch.Tensor, e: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """experts (B, T, k) → (slot (B, T, k), kept (B, T, k) bool): each
+    assignment's place in its expert's buffer, the number of assignments
+    before it (in token-major, choice-minor order) to the same expert, as
+    the reference's stable sort orders them; kept iff below capacity."""
+    b, t, k = experts.shape
+    flat = experts.reshape(b, t * k)
+    onehot = F.one_hot(flat, e).to(torch.int32)  # (B, T·k, E)
+    before = torch.cumsum(onehot, dim=1) - onehot
+    slot = torch.gather(before, 2, flat[..., None])[..., 0].reshape(b, t, k)
+    return slot, slot < capacity
+
+
+def _dispatch_indices(experts: torch.Tensor, gates: torch.Tensor, e: int,
+                      capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token → expert assignments → expert-major buffers, for every batch
+    row at once (the reference's, vmapped over rows).
+
+    experts / gates: (B, T, k).  Returns
+      idx_buf  (B, E, C) int64   — token id filling each expert slot, -1 empty
+      gate_buf (B, E, C) float32 — combine weight of that slot (0 if empty)
+    Kept slots are unique per (expert, place); assignments past capacity
+    go to an overflow column C, which is cut off."""
+    return _buffers(experts, gates, *_slots(experts, e, capacity), e, capacity)
+
+
+def _buffers(experts, gates, slot, kept, e: int, capacity: int):
+    """``_dispatch_indices`` from the assignments' slots (``_slots``)."""
+    b, t, k = experts.shape
+    col = torch.where(kept, slot, capacity)
+    target = (experts * (capacity + 1) + col).reshape(b, t * k)
+    token = (torch.arange(t * k, device=experts.device) // k).expand(b, t * k)
+    idx_buf = torch.full((b, e * (capacity + 1)), -1, dtype=torch.long, device=experts.device)
+    idx_buf.scatter_(1, target, torch.where(kept.reshape(b, t * k), token, -1))
+    gate_buf = torch.zeros((b, e * (capacity + 1)), dtype=torch.float32,
+                           device=experts.device)
+    gate_buf.scatter_(1, target, torch.where(kept, gates.float(), 0.0).reshape(b, t * k))
+    return (idx_buf.view(b, e, capacity + 1)[..., :capacity],
+            gate_buf.view(b, e, capacity + 1)[..., :capacity])
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              capacity_factor: float | None = None) -> torch.Tensor:
+    """Sparse MoE forward, x (B, S, d) → (B, S, d): the reference's on one
+    device (its expert-parallel layout without a mesh)."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    cap = capacity(cfg, s, capacity_factor)
+    gates, experts = _router(p, cfg, x)  # (B, S, k)
+    slot, kept = _slots(experts, e, cap)
+    idx_buf, gate_buf = _buffers(experts, gates, slot, kept, e, cap)
+
+    idx_safe = torch.clamp(idx_buf, min=0).reshape(b, e * cap)
+    buf = torch.gather(x, 1, idx_safe[..., None].expand(b, e * cap, d)).reshape(b, e, cap, d)
+    buf = torch.where((idx_buf >= 0)[..., None], buf, torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+    buf = buf.transpose(0, 1).reshape(e, b * cap, d)
+    out_buf = _expert_ffn(p, cfg, buf)  # (E, B·C, d)
+    out_buf = out_buf.reshape(e, b, cap, d).transpose(0, 1)  # (B, E, C, d)
+    weighted = (out_buf * gate_buf[..., None].to(out_buf.dtype)).reshape(b, e * cap, d)
+
+    # combine: each token's kept slots, in ascending expert order
+    order = torch.argsort(experts, dim=-1)
+    experts, slot, kept = (torch.gather(a, -1, order) for a in (experts, slot, kept))
+    where = (experts * cap + torch.clamp(slot, max=cap - 1)).reshape(b, -1)
+    picked = torch.gather(weighted, 1, where[..., None].expand(-1, -1, d))
+    picked = picked.reshape(b, s, cfg.experts_per_token, d)
+    out = torch.zeros_like(x)
+    for j in range(cfg.experts_per_token):
+        out = torch.where(kept[..., j, None], out + picked[:, :, j], out)
+    return out
+
+
+def moe_apply_dense(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Oracle: every expert on every token, gate-combined (O(E/k) work)."""
+    b, s, d = x.shape
+    gates, experts = _router(p, cfg, x)
+    xt = x.reshape(1, b * s, d).expand(cfg.n_experts, b * s, d)
+    outs = _expert_ffn(p, cfg, xt).reshape(cfg.n_experts, b, s, d)
+    onehot = F.one_hot(experts, cfg.n_experts).to(x.dtype)  # (B, S, k, E)
+    w = (onehot * gates[..., None].to(x.dtype)).sum(2)  # (B, S, E)
+    return torch.einsum("ebsd,bse->bsd", outs, w)

@@ -1,11 +1,15 @@
-"""Arch registry: maps a ported ``--arch`` id to its config and model module,
-with the transformer family's serving support rules and cache contracts.
+"""Arch registry: maps every ported ``--arch`` id to its config and model
+module, with the serving support rules (the reference's skip reasons) and
+the cache contracts.
 
-A counterpart of ``repro.models.registry``: the dense decoder
-(``models.transformer``) is the only ported family.  The reference checks
-its cache contracts with ``jax.eval_shape``; the port runs the same
-forwards for real on the ``meta`` device (shapes and dtypes, no data, so
-the full-width config costs nothing), over raw params made there.
+A counterpart of ``repro.models.registry``.  Every family of
+``models.transformer`` is ported: dense, MoE, encoder and VLM (seven of the
+ten configs).  The hybrid (zamba2) and rwkv families are not:
+``get_arch`` refuses them.  The reference checks its cache contracts with
+``jax.eval_shape``; the port runs the same forwards for real on the
+``meta`` device (shapes and dtypes, no data, so a full-width config costs
+nothing), over raw params made there, fed tokens, embeddings or M-RoPE
+positions as the arch's ``input_kind`` says.
 
 Cache layout contract (as in the reference): every cache leaf is
 (n_layers, B, …) with the batch / slot axis on ``CACHE_SLOT_AXIS``; a
@@ -19,16 +23,43 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, get_config, reduced_config
+from repro_torch.configs.base import ModelConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.models import transformer
 
 META = torch.device("meta")
+
+# the families ``models.transformer`` serves
+TRANSFORMER_FAMILIES = ("dense", "moe", "encoder", "vlm")
+
+_INPUT_KIND = {
+    "hubert-xlarge": "embeds",
+    "qwen2-vl-2b": "embeds+mrope",
+}
+
+
+def _unported_reason(cfg: ModelConfig) -> str:
+    """Why ``cfg``'s model module is not in the port ('' if it is)."""
+    if cfg.family == "hybrid":
+        return ("the hybrid family (models/{mamba2,hybrid}.py) is not ported: ROADMAP "
+                "Queue 1 item 2")
+    if cfg.rwkv_head_size:
+        return ("the rwkv family (models/{rwkv6,rwkv_model}.py) is not ported: ROADMAP "
+                "Queue 1 item 2")
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        return f"{cfg.family} family is not ported"
+    return ""
 
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     arch_id: str
     cfg: ModelConfig
+
+    @property
+    def input_kind(self) -> str:
+        """What the arch's forward is fed: "tokens", "embeds" or
+        "embeds+mrope" (the reference's stubbed modality frontends)."""
+        return _INPUT_KIND.get(self.arch_id, "tokens")
 
     def init_params(self, gen: torch.Generator | None, device,
                     cfg: ModelConfig | None = None):
@@ -51,10 +82,19 @@ class Arch:
 
     def chunked_prefill_skip_reason(self) -> str:
         """'' when the family can resume prefill at a nonzero start position
-        over an existing cache prefix, else why not."""
-        if self.cfg.family != "dense":
-            return f"{self.cfg.family} family is not ported"
-        return ""
+        over an existing cache prefix, else why not (the reference's
+        strings)."""
+        if self.cfg.encoder_only:
+            return "encoder-only arch has no decode step"
+        if self.cfg.rwkv_head_size:
+            return ("rwkv carries O(1) recurrent state, not a growing KV "
+                    "cache; resuming prefill mid-prompt needs a state-"
+                    "snapshot contract that is not wired yet")
+        if self.cfg.family == "hybrid":
+            return ("hybrid cache mixes attention KV with O(1) ssm/conv "
+                    "state; chunk-resume over the recurrent leaves is not "
+                    "wired yet")
+        return _unported_reason(self.cfg)
 
     @property
     def supports_spec_decode(self) -> bool:
@@ -72,8 +112,17 @@ class Arch:
         return self.paged_skip_reason() == ""
 
     def paged_skip_reason(self) -> str:
-        """'' when the family supports the paged-KV serving layout."""
-        if self.cfg.family != "dense":
+        """'' when the family supports the paged-KV serving layout, else why
+        not (the reference's strings)."""
+        if self.cfg.encoder_only:
+            return "encoder-only arch has no decode step"
+        if self.cfg.rwkv_head_size:
+            return ("rwkv state is O(1) in sequence length — there is no "
+                    "growing KV cache to page")
+        if self.cfg.family == "hybrid":
+            return ("hybrid cache mixes attention KV with O(1) ssm/conv "
+                    "state; per-leaf paging not wired yet")
+        if _unported_reason(self.cfg):
             return f"{self.arch_id}: model family has no init_paged_cache"
         return ""
 
@@ -85,9 +134,23 @@ class Arch:
         return transformer.init_paged_cache(cfg or self.cfg, n_blocks, block_len, device,
                                             cache_quant_int8=cache_quant_int8)
 
+    # -- shape support (the reference's skip matrix) ------------------------
+    def supports(self, shape: ShapeSpec) -> tuple[bool, str]:
+        if shape.kind == "decode" and self.cfg.encoder_only:
+            return False, "encoder-only arch has no decode step"
+        if shape.name == "long_500k" and not self.cfg.is_subquadratic:
+            return False, (
+                "pure full-attention arch: 500k-token decode requires "
+                "sub-quadratic attention (skip noted in DESIGN.md §4)"
+            )
+        return True, ""
+
 
 def get_arch(arch_id: str, reduced: bool = False) -> Arch:
     cfg = reduced_config(arch_id) if reduced else get_config(arch_id)
+    reason = _unported_reason(cfg)
+    if reason:
+        raise NotImplementedError(f"{arch_id}: {reason}")
     return Arch(arch_id=arch_id, cfg=cfg)
 
 
@@ -176,8 +239,14 @@ def _meta_params(arch: Arch, cfg: ModelConfig):
     return arch.init_params(None, META, cfg)
 
 
-def _tokens(b: int, s: int) -> torch.Tensor:
-    return torch.zeros((b, s), dtype=torch.long, device=META)
+def _inputs(arch: Arch, cfg: ModelConfig, b: int, s: int) -> dict:
+    """Meta inputs of a (b, s) forward, as the arch's ``input_kind`` says."""
+    if arch.input_kind == "tokens":
+        return {"tokens": torch.zeros((b, s), dtype=torch.long, device=META)}
+    kw = {"embeds": torch.zeros((b, s, cfg.d_model), dtype=torch.bfloat16, device=META)}
+    if arch.input_kind == "embeds+mrope":
+        kw["positions"] = torch.zeros((b, 3, s), dtype=torch.long, device=META)
+    return kw
 
 
 def check_decode_cache_carry(arch: Arch, batch: int = 2, max_len: int = 8,
@@ -189,7 +258,7 @@ def check_decode_cache_carry(arch: Arch, batch: int = 2, max_len: int = 8,
     cfg = cfg or arch.cfg
     cache = arch.init_cache(batch, max_len, META, cfg, cache_quant_int8)
     before = _specs(cache)
-    _, out = arch.forward(_meta_params(arch, cfg), cfg, tokens=_tokens(batch, 1), cache=cache,
+    _, out = arch.forward(_meta_params(arch, cfg), cfg, **_inputs(arch, cfg, batch, 1), cache=cache,
                           cache_pos=torch.zeros((batch,), dtype=torch.long, device=META))
     _assert_same(arch, before, _specs(out), "decode")
 
@@ -240,7 +309,7 @@ def check_slots_cache_contract(arch: Arch, n_slots: int = 4, chunk: int = 2,
     params = _meta_params(arch, cfg)
     starts = torch.zeros((b,), dtype=torch.long, device=META)
     small_before = _specs(small)
-    logits, small = arch.forward(params, cfg, tokens=_tokens(b, chunk), cache=small,
+    logits, small = arch.forward(params, cfg, **_inputs(arch, cfg, b, chunk), cache=small,
                                  cache_pos=starts)
     _assert_same(arch, small_before, _specs(small), "chunk-resume forward")
     if tuple(logits.shape) != (b, chunk, cfg.vocab_size):
@@ -250,7 +319,7 @@ def check_slots_cache_contract(arch: Arch, n_slots: int = 4, chunk: int = 2,
         pool = arch.init_paged_cache(n_slots + 2, block_len, META, cfg, cache_quant_int8)
         pool_before = _specs(pool)
         table = torch.zeros((b, max_len // block_len), dtype=torch.int32, device=META)
-        _, pool = arch.forward(params, cfg, tokens=_tokens(b, chunk), cache=pool,
+        _, pool = arch.forward(params, cfg, **_inputs(arch, cfg, b, chunk), cache=pool,
                                cache_pos=starts, block_table=table)
         _assert_same(arch, pool_before, _specs(pool), "paged chunk-resume forward")
 
@@ -281,7 +350,8 @@ def check_paged_cache_contract(arch: Arch, n_slots: int = 2, block_len: int = 4,
                              f"{CACHE_BLOCK_AXIS} (or block_len not after it): {bad}")
     pool = arch.init_paged_cache(a, block_len, META, cfg, cache_quant_int8)
     before = _specs(pool)
-    _, out = arch.forward(_meta_params(arch, cfg), cfg, tokens=_tokens(n_slots, 1), cache=pool,
+    _, out = arch.forward(_meta_params(arch, cfg), cfg, **_inputs(arch, cfg, n_slots, 1),
+                          cache=pool,
                           cache_pos=torch.zeros((n_slots,), dtype=torch.long, device=META),
                           block_table=torch.zeros((n_slots, max_blocks), dtype=torch.int32,
                                                   device=META))

@@ -1,12 +1,15 @@
-"""Decoder-only transformer LM: embed → L × layer → final norm → LM head.
+"""Transformer LM assembly: dense / MoE / encoder / VLM families.
 
-The port of ``repro.models.transformer`` for the dense decoder path.  Layer
+embed (or the caller's embeddings) → L × layer → final norm → LM head (or
+the tied embedding).  The port of ``repro.models.transformer``.  Layer
 params are stacked on a leading (n_layers,) axis as in the reference (so
 converted JAX trees load as they are); ``trunk_apply`` walks them with a
 Python loop where the reference ran ``lax.scan``.  One code path serves
-prefill, chunk-resume, decode and the verify window over dense, paged and
-int8 KV caches; the mode is picked by (cache, cache_pos, block_table,
-decode_chunk) exactly as in ``layers.attention_apply``.
+the encoder forward, prefill, chunk-resume, decode and the verify window
+over dense, paged and int8 KV caches; the mode is picked by (cache,
+cache_pos, block_table, decode_chunk) exactly as in
+``layers.attention_apply``.  A layer's FFN is the MoE block
+(``models.moe``) when the config has experts.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 Params = dict[str, Any]
 
@@ -23,17 +27,21 @@ Params = dict[str, Any]
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Random weights from ``gen`` (which must live on ``device``)."""
     lead = (cfg.n_layers,)
-    return {
-        "embed": L.embed_init(gen, cfg, device),
-        "layers": {
-            "ln1": L.norm_init(cfg, device, lead),
-            "attn": L.attention_init(gen, cfg, device, lead),
-            "ln2": L.norm_init(cfg, device, lead),
-            "ffn": L.ffn_init(gen, cfg, device, lead),
-        },
-        "final_norm": L.norm_init(cfg, device),
-        "lm_head": L.lm_head_init(gen, cfg, device),
+    embed = L.embed_init(gen, cfg, device)
+    layers = {
+        "ln1": L.norm_init(cfg, device, lead),
+        "attn": L.attention_init(gen, cfg, device, lead),
+        "ln2": L.norm_init(cfg, device, lead),
     }
+    if cfg.n_experts:
+        layers["moe"] = M.moe_init(gen, cfg, device, lead)
+    else:
+        layers["ffn"] = L.ffn_init(gen, cfg, device, lead)
+    p = {"embed": embed, "layers": layers,
+         "final_norm": L.norm_init(cfg, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.lm_head_init(gen, cfg, device)
+    return p
 
 
 def layer_apply(
@@ -51,10 +59,13 @@ def layer_apply(
         p["attn"], cfg, L.norm_apply(p["ln1"], x), positions,
         cache=None if cache is None else cache[:2],
         cache_scales=cache[2:] if cache is not None and len(cache) == 4 else None,
-        cache_pos=cache_pos, block_table=block_table, decode_chunk=decode_chunk,
-        query_rows=query_rows)
+        cache_pos=cache_pos, block_table=block_table, causal=not cfg.encoder_only,
+        decode_chunk=decode_chunk, query_rows=query_rows)
     x = x + h
-    return x + L.ffn_apply(p["ffn"], L.norm_apply(p["ln2"], x))
+    hin = L.norm_apply(p["ln2"], x)
+    if cfg.n_experts:
+        return x + M.moe_apply(p["moe"], cfg, hin)
+    return x + L.ffn_apply(p["ffn"], hin)
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -93,8 +104,9 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     *,
-    tokens: torch.Tensor,  # (B, S) int
-    positions: torch.Tensor | None = None,  # (B, S); default arange
+    tokens: torch.Tensor | None = None,  # (B, S) int
+    embeds: torch.Tensor | None = None,  # (B, S, D): stubbed modality frontends
+    positions: torch.Tensor | None = None,  # (B, S) / (B, 3, S); default arange
     cache: dict | None = None,
     cache_pos: torch.Tensor | None = None,  # (B,) decode step / chunk-resume start
     block_table: torch.Tensor | None = None,  # (B, MB) — paged KV
@@ -108,11 +120,19 @@ def forward(
     cache's prefix.  ``decode_chunk=True`` (with ``cache_pos``, S > 1) is
     the speculative-verify window: the same writes, and each row attends as
     the sequential decode step it replaces (``layers.decode_attention``,
-    its query rows padded to ``query_rows``, 0 = the device's default)."""
-    x = L.embed_apply(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    b, s = tokens.shape
+    its query rows padded to ``query_rows``, 0 = the device's default).
+    ``embeds`` replaces the token embedding (hubert's frames, qwen2-vl's
+    patch and text embeddings); M-RoPE positions are (B, 3, S)."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    if embeds is None:
+        if tokens is None:
+            raise ValueError("forward needs tokens or embeds")
+        x = L.embed_apply(params["embed"], tokens, dtype)
+    else:
+        x = embeds.to(dtype)
+    b, s = x.shape[:2]
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        positions = torch.arange(s, device=x.device).expand(b, s)
         if cache_pos is not None:
             # decode / chunk-resume: absolute positions continue from each
             # row's cache offset
@@ -120,6 +140,8 @@ def forward(
     x, cache = trunk_apply(params, cfg, x, positions, cache, cache_pos, block_table,
                            decode_chunk, query_rows)
     x = L.norm_apply(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return L.tied_head_apply(params["embed"], x), cache
     return L.lm_head_apply(params["lm_head"], x), cache
 
 

@@ -10,7 +10,7 @@ statistics that drive VDU power gating.
   column-compressed by activation sparsity (dense activations, residual
   weight sparsity).
 * ``lm_workload``: beyond the paper: one decode / forward step's linear
-  layers of a decoder LM on the same hardware models.
+  layers of a transformer LM on the same hardware models.
 """
 from __future__ import annotations
 
@@ -138,20 +138,26 @@ def lm_workload(
     act_sparsity: float = 0.0,
     seq_len: int = 1,
 ) -> list[LayerWork]:
-    """Beyond the paper: price an LM decode / forward step's linear layers.
+    """Beyond the paper: price an LM decode / forward step's linear layers
+    (an MoE layer at its k active experts, the SwiGLU or gelu MLP).
 
-    The port's ``ModelConfig`` describes the dense SwiGLU decoder only: the
-    reference's MoE (``n_experts``) and gelu-MLP (``ffn``) branches wait for
-    those families to be ported, and a config that asks for either raises
-    rather than be priced as something else."""
-    if getattr(cfg, "n_experts", 0) or getattr(cfg, "ffn", "swiglu") != "swiglu":
-        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU decoder is "
-                                  "ported; MoE and gelu-MLP pricing are not")
+    The transformer families are priced as the reference prices them; a
+    config of a family the port does not serve (hybrid, rwkv) raises."""
+    if cfg.family in ("hybrid", "ssm") or cfg.rwkv_head_size:
+        raise NotImplementedError(f"{cfg.arch_id}: the {cfg.family} family is not ported; "
+                                  "lm_workload prices the transformer's attention and "
+                                  "SwiGLU / gelu-MLP / MoE layers")
     d, h, kh, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     per_layer = [
         ("wq", d, h * dh), ("wk", d, kh * dh), ("wv", d, kh * dh), ("wo", h * dh, d),
-        ("wi", d, f), ("wg", d, f), ("wo_ffn", f, d),
     ]
+    if cfg.n_experts:
+        k = cfg.experts_per_token
+        per_layer += [("moe_wi", d, k * f), ("moe_wg", d, k * f), ("moe_wo", k * f, d)]
+    elif cfg.ffn == "swiglu":
+        per_layer += [("wi", d, f), ("wg", d, f), ("wo_ffn", f, d)]
+    else:
+        per_layer += [("wi", d, f), ("wo_ffn", f, d)]
     work = []
     for name, d_in, d_out in per_layer:
         vlen = max(int(round((1.0 - act_sparsity) * d_in)), 1)

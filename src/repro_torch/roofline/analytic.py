@@ -3,19 +3,21 @@
 The port of the per-launch serving cost models of
 ``repro.roofline.analytic`` (``StepCost``, ``decode_step_cost``,
 ``prefill_chunk_cost``, ``spec_verify_cost``, ``step_time``), for the
-family the port serves: the dense decoder (SwiGLU FFN, untied LM head, no
-experts).  The arithmetic is the reference's, term for term and in its
-order, so both packages price a launch to the same float.  The
-reference's ``analytic_cost`` over a ``ShapeSpec`` (training and
-whole-cell costs) is not ported.
+families the port serves: the transformer's dense, MoE, encoder and VLM
+configs (SwiGLU or gelu-MLP FFNs, tied or untied LM head, experts).  The
+arithmetic is the reference's, term for term and in its order, so both
+packages price a launch to the same float.  The reference's hybrid and
+rwkv branches wait for those families (a config of either raises), and
+its ``analytic_cost`` over a ``ShapeSpec`` (training and whole-cell costs)
+is not ported: ``decode_step_cost`` inlines its decode branch.
 
 These price what the serving programs in ``serve/engine.py`` EXECUTE, not
 what is useful: a decode segment attends the full max_len row every step
 and runs all n_slots rows (masked ones included), a chunked-prefill launch
-is padded to a power-of-two width.  The trace recorder
-(``serve/trace.py``) and the knob autotuner (``roofline/autotune.py``)
-both price work through these, so their flops/bytes columns are directly
-comparable.
+is padded to a power-of-two width, and an MoE prefill runs its experts'
+capacity padding.  The trace recorder (``serve/trace.py``) and the knob
+autotuner (``roofline/autotune.py``) both price work through these, so
+their flops/bytes columns are directly comparable.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ import dataclasses
 from repro_torch.configs.base import ModelConfig
 from repro_torch.roofline.hw import HWTarget
 
+_PRICED = ("dense", "moe", "encoder", "vlm")
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"the serving cost models price the dense decoder, not "
-                         f"{cfg.family!r}")
+    if cfg.family not in _PRICED or cfg.rwkv_head_size:
+        raise ValueError(f"the serving cost models price the transformer families (the "
+                         f"dense decoder, MoE, encoder, VLM), not {cfg.family!r}")
 
 
 def _param_counts(cfg: ModelConfig) -> tuple[int, int]:
@@ -36,9 +40,17 @@ def _param_counts(cfg: ModelConfig) -> tuple[int, int]:
     _check_family(cfg)
     d, f, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    embed = V * d * 2  # embed + untied lm_head
+    embed = V * d * (1 if cfg.tie_embeddings else 2)  # embed + lm_head
     attn = d * h * dh + 2 * d * kh * dh + h * dh * d
-    ffn_dense = 3 * d * f  # swiglu: wi, wg, wo
+    n_ffn_mats = 3 if cfg.ffn == "swiglu" else 2
+    ffn_dense = n_ffn_mats * d * f
+    if cfg.n_experts:
+        experts = cfg.n_experts * n_ffn_mats * d * f
+        active_experts = cfg.experts_per_token * n_ffn_mats * d * f
+        router = d * cfg.n_experts
+        total = embed + L * (attn + experts + router)
+        active = L * (attn + active_experts + router) + V * d
+        return active, total
     total = embed + L * (attn + ffn_dense)
     return L * (attn + ffn_dense) + V * d, total
 
@@ -47,7 +59,7 @@ def _attn_flops(cfg: ModelConfig, tokens: float, s_ctx: float, causal: bool,
                 decode: bool) -> tuple[float, float]:
     """(useful, executed) attention score+pv FLOPs (projections excluded)."""
     h, dh = cfg.n_heads, cfg.head_dim
-    useful_ctx = s_ctx / 2 if (causal and not decode) else s_ctx
+    useful_ctx = s_ctx / 2 if (causal and not decode and not cfg.encoder_only) else s_ctx
     return (
         4 * h * dh * useful_ctx * tokens * cfg.n_layers,
         4 * h * dh * s_ctx * tokens * cfg.n_layers,
@@ -135,7 +147,7 @@ def prefill_chunk_cost(
     lin = 2.0 * n_active * tokens
     # executed attention at the mean context = exact Σ over rows (linear)
     _, attn_x = _attn_flops(cfg, tokens, s_mean, causal=True, decode=False)
-    moe_pad = 1.0
+    moe_pad = cfg.moe_capacity_factor if cfg.n_experts else 1.0
     flops = lin * moe_pad + attn_x
     act = 8.0 * tokens * cfg.d_model * 2.0 * cfg.n_layers
     kv = (2.0 * ctx_sum * cfg.n_kv_heads * cfg.head_dim

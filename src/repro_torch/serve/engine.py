@@ -34,10 +34,15 @@ registered with each graph at capture (a graph is captured anew for another
 generator object), so a replayed draw advances the generator as an eager
 one does.
 
-Under ``ServeConfig(weight_quant="int8")`` every linear projection (q, k,
-v, o, wi, wg, wo and the LM head) is rewritten once, at construction, into
-int8 block-sparse form (``core.sonic_layers.quantize_serve_params``), on the
-engine's device; tensors already in that form pass through.
+The engine serves every family of ``models.transformer`` that decodes:
+dense, MoE and VLM (fed tokens, as the reference's engine feeds them); an
+encoder-only arch is refused with the reference's reason.  Under
+``ServeConfig(weight_quant="int8")`` every linear projection (q, k, v, o,
+wi, wg, wo and the LM head) is rewritten once, at construction, into int8
+block-sparse form (``core.sonic_layers.quantize_serve_params``), on the
+engine's device; tensors already in that form pass through.  An MoE model
+is served unquantized: int8 refuses its tree (the router reads a dense
+kernel; the reference fails there with a ``KeyError``).
 ``cache_quant_int8`` (the reference's ``MeshPlan.cache_quant_int8``) keeps
 the KV cache int8 with one fp32 scale per position and head.
 
@@ -121,6 +126,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.configs.base import SHAPES
 from repro_torch.core.sonic_layers import (quantize_serve_params, sparse_draft_params,
                                            truncated_draft_params)
 from repro_torch.kernels import counters
@@ -341,6 +347,9 @@ class ServeEngine:
             # cache the dense row's shape, which the bitwise contract needs
             raise ValueError(f"max_len {sc.max_len} is not a multiple of block_len "
                              f"{sc.block_len}")
+        ok, reason = arch.supports(SHAPES["decode_32k"])
+        if not ok:  # the reference's skip matrix: an encoder has no decode step
+            raise ValueError(f"{arch.arch_id}: {reason}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: pass device='cpu' to serve "

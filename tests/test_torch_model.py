@@ -129,12 +129,14 @@ def test_flash_attention_chunks_and_padding_match_jax():
 
 def test_attention_modes_not_ported_raise(setup):
     """Chunk-resume, the verify window, paged and int8 KV are ported
-    (``tests/test_torch_modes.py``); M-RoPE positions are not, and a decode
-    step or a paged forward without a position has none to write at."""
+    (``tests/test_torch_modes.py``), and M-RoPE (``tests/test_torch_families.py``);
+    M-RoPE positions on a config whose sections do not cover head_dim / 2
+    raise (the reference asserts), and a decode step or a paged forward
+    without a position has none to write at."""
     _, _, tcfg, tparams = setup
     cache = tT.init_cache(tcfg, 1, 16, "cpu", dtype=torch.float32)
     tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):  # M-RoPE positions (B, 3, S)
+    with pytest.raises(ValueError, match="mrope_sections"):  # (16, 24, 24) at head_dim 16
         tT.forward(tparams, tcfg, tokens=tok, positions=torch.zeros((1, 3, 4), dtype=torch.long),
                    cache=cache)
     with pytest.raises(ValueError):  # a one-token step without a position

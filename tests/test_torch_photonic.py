@@ -102,22 +102,13 @@ def test_lm_workload_matches_jax():
 
 
 def test_lm_workload_refuses_configs_it_does_not_price():
-    """The reference prices MoE (active experts) and gelu-MLP FFNs too; the
-    port's config has neither field yet, so such a config raises rather
-    than be priced as a dense SwiGLU decoder."""
-    cfg = get_config("tinyllama-1.1b")
-
-    @dataclasses.dataclass(frozen=True)
-    class MoEConfig(type(cfg)):
-        n_experts: int = 8
-
-    @dataclasses.dataclass(frozen=True)
-    class GeluConfig(type(cfg)):
-        ffn: str = "gelu"
-
-    for kind in (MoEConfig, GeluConfig):
-        with pytest.raises(NotImplementedError, match="SwiGLU"):
-            lm_workload(kind(**dataclasses.asdict(cfg)))
+    """The transformer families are priced (``tests/test_torch_families.py``
+    holds MoE, gelu-MLP and tied configs to the reference); the families
+    the port does not serve, hybrid and rwkv, raise rather than be priced
+    as transformer layers they do not have."""
+    for arch_id in ("zamba2-7b", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            lm_workload(get_config(arch_id))
 
 
 @pytest.fixture(scope="module")

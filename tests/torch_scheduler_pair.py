@@ -2,8 +2,9 @@
 ``tests/test_torch_scheduler*.py`` files (not collected: no ``test_``
 prefix).
 
-Reduced tinyllama, fp32 compute on both sides, int8 weights at (16, 16) and
-sparsity 0.5 (as ``tests/test_torch_serve_loops.py``), the port's weights
+Reduced tinyllama (or ``make_sides``'s arch), fp32 compute on both sides,
+int8 weights at (16, 16) and sparsity 0.5 (as
+``tests/test_torch_serve_loops.py``; or ``make_sides``'s), the port's weights
 from ``convert.params_from_jax``; workloads drawn with numpy.  ``parity``
 runs both schedulers over one workload with a fake clock and requires
 equal per-request greedy tokens, states, ``finish_reason``s and host
@@ -38,28 +39,29 @@ COUNTERS = ("admitted", "retired", "segments", "steps_total", "slot_steps_live",
             "chaos_cancels", "chaos_slot_failures")
 
 
-def make_sides():
+def make_sides(arch_id: str = "tinyllama-1.1b", weights: dict = QUANT):
     """engines(layout="dense", quant=False, compute="float32", **ServeConfig
-    fields) → the (JAX, port) engine pair, made once per arguments.
+    fields) → the (JAX, port) engine pair of the reduced ``arch_id`` with
+    the ServeConfig fields ``weights``, made once per arguments.
 
     Parity with JAX runs in fp32 compute.  The port's own bitwise contracts
     that involve a chunked prefill run in the served bf16 compute: in fp32
     a whole-prompt prefill attends its fresh fp32 k/v while a chunk-resume
     attends the bf16 cache it wrote, in both packages, so the two differ
     there by design."""
-    raw = jax_get_arch("tinyllama-1.1b", reduced=True).init_params(jax.random.PRNGKey(0))
+    raw = jax_get_arch(arch_id, reduced=True).init_params(jax.random.PRNGKey(0))
     raw_t = params_from_jax(jax.tree_util.tree_map(np.array, raw), "cpu")
     made = {}
 
     def engines(layout="dense", quant=False, compute="float32", **kw):
         key = (layout, quant, compute, tuple(sorted(kw.items())))
         if key not in made:
-            sc = {"max_len": MAX_LEN, "kv_layout": layout, "block_len": BLOCK_LEN, **QUANT,
+            sc = {"max_len": MAX_LEN, "kv_layout": layout, "block_len": BLOCK_LEN, **weights,
                   **kw}
             spec = sc.get("spec")
             jsc = {**sc, "spec": spec and JaxSpecConfig(**dataclasses.asdict(spec))}
-            jarch = jax_get_arch("tinyllama-1.1b", reduced=True)
-            arch = get_arch("tinyllama-1.1b", reduced=True)
+            jarch = jax_get_arch(arch_id, reduced=True)
+            arch = get_arch(arch_id, reduced=True)
             made[key] = (
                 JaxServeEngine(dataclasses.replace(jarch, cfg=jarch.cfg.replace(
                     compute_dtype=compute)), raw, MeshPlan(cache_quant_int8=quant),
@@ -72,15 +74,15 @@ def make_sides():
     return engines
 
 
-def sides_fixture():
+def sides_fixture(*args):
     """The body of each file's module-scoped ``sides`` fixture: the engines
-    of ``make_sides``, with torch on one CPU thread meanwhile (at these
-    sizes one thread is as fast, and the test run's workers do not
+    of ``make_sides(*args)``, with torch on one CPU thread meanwhile (at
+    these sizes one thread is as fast, and the test run's workers do not
     oversubscribe the cores)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        yield make_sides()
+        yield make_sides(*args)
     finally:
         torch.set_num_threads(threads)
 
