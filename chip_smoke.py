@@ -203,8 +203,12 @@ Phases, in order; any failure exits non-zero before the last line:
      decode ms/token and tok/s (median, min, max of 7), continuous dense ≡
      paged on 8 ``_poisson_draws`` requests, and the int8 pair's device
      ms per step (the matvec at M = 4, the matmul at M = 256) beside the
-     bound, the plain version and the densified library call (with
-     cuBLAS's dense rows past the 64-row floor at each shape, reported).  moonshot-v1-16b-a3b (MoE: 48 layers, 64 experts, top-6;
+     bound, the plain version and the densified library call; then the
+     dense bf16 path past its 64-row floor (``layers.dense_apply``, which
+     runs a product in 64-row chunks on the card) at each of the six
+     shapes, and the norm's mean at its width: a row at M = 1, 4, 7 must
+     equal the same row in windows of 68, 80 and 192 rows.
+     moonshot-v1-16b-a3b (MoE: 48 layers, 64 experts, top-6;
      ~56 GB) at full width and depth unquantized: the same checks and
      times but the int8 ones (no hand kernel runs on its path), its peak
      memory, the weight bytes a decode step reads, and one ``truncate:12``
@@ -214,7 +218,20 @@ Phases, in order; any failure exits non-zero before the last line:
      short generate, scan ≡ python, the int8 launches and shapes held as
      above.  hubert-xlarge at full width, 2 layers: a finite encoder
      forward on frame embeddings, and the engine's refusal with the
-     reference's reason.
+     reference's reason.  The recurrent families at full width and depth,
+     bf16 (``_family_recurrent``): zamba2-7b (hybrid: 81 Mamba2 layers, one
+     shared attention block invoked every 6) and rwkv6-3b (32 layers): no
+     hand kernel launched, scan ≡ python, two runs equal, prefill ms,
+     decode ms/token and tok/s (median, min, max of 7), peak memory,
+     capture seconds, the device kernels and busy ms of one decode-step
+     replay (torch.profiler), the bytes a decode step must move (the
+     shared block once per invocation, the recurrent state read and
+     written) over 3.35 TB/s as a floor; 8 ``_poisson_draws`` requests
+     through ``ContinuousScheduler`` (dense, n_slots 4, segment_len 8, scan
+     and while, chunked admission asked for and refused with the
+     reference's reason) each equal to its own ``generate`` at B = 1; a
+     ``truncate:N`` spec engine falls back with the reference's reason,
+     ``init_paged_cache`` raises, and int8 weights are refused.
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -274,7 +291,8 @@ from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
 from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import cnn, layers, transformer  # noqa: E402
-from repro_torch.models.registry import get_arch  # noqa: E402
+from repro_torch.models.hybrid import n_shared_invocations  # noqa: E402
+from repro_torch.models.registry import META, get_arch  # noqa: E402
 from repro_torch.photonic.accelerator import SonicAccelerator, SonicHWConfig  # noqa: E402
 from repro_torch.photonic.baselines import evaluate_all  # noqa: E402
 from repro_torch.photonic.mapper import cnn_workload, lm_workload  # noqa: E402
@@ -2355,15 +2373,16 @@ def _hold_int8_shapes(weights, dev) -> dict:
     return {"shapes": list(_by_shape(weights)), "tolerance": TOL, "max_abs_err": err}
 
 
-def _int8_step_timing(weights, dev) -> dict:
+def _int8_step_timing(weights, dev, d_model: int) -> dict:
     """The int8 pair's device time for one step's launches (every
     projection once, bf16 x, replayed from a CUDA graph): the matvec at a
     decode step's 4 rows, the matmul at a prefill's 256; each beside its
     plain version, x @ the densified bf16 weight (a library call the port
     never makes) and the bound (bytes: kept int8 + fp32 scales + int32
     indices + x (bf16) + y (fp32); operations: 2·M·kept weights), as phase
-    6 times tinyllama's.  Then cuBLAS's rows past the dense path's 64-row
-    floor at each distinct shape (reported).  By kernel name."""
+    6 times tinyllama's.  Then the dense bf16 path's rows past its 64-row
+    floor at each distinct shape, and the norm's (RMS and layernorm) at
+    d_model: held, 0 rows differing.  By kernel name."""
     ks = sorted({k for k, *_ in weights})
     dense = [BlockSparseWeightInt8(v, s, ix, k // v.shape[2]).dense(torch.bfloat16)
              for k, v, s, ix in weights]
@@ -2402,9 +2421,17 @@ def _int8_step_timing(weights, dev) -> dict:
     for (k, v, *_), d in zip(weights, dense):
         firsts.setdefault(f"{k}x{v.shape[0] * v.shape[3]}", d)
     x = torch.randn((max(DENSE_WINDOWS), max(ks)), device=dev, dtype=torch.bfloat16)
-    out["dense_rows_past_64"] = {
+    out["dense_rows_past_64"] = rows = {
         shape: _rows_across(lambda xx, d=d: layers.dense_apply({"kernel": d}, xx),
                             x[:, :d.shape[0]], DENSE_WINDOWS) for shape, d in firsts.items()}
+    ones = torch.ones((d_model,), device=dev)
+    for name, p in (("rmsnorm", {"scale": ones}),
+                    ("layernorm", {"scale": ones, "norm_bias": torch.zeros_like(ones)})):
+        rows[f"{name}_{d_model}"] = _rows_across(lambda xx, p=p: layers.norm_apply(p, xx),
+                                                 x[:, :d_model] * 3, DENSE_WINDOWS)
+    bad = {shape: r for shape, r in rows.items() if r["rows_differing"]}
+    if bad:
+        raise AssertionError(f"families: rows past the 64-row floor differ: {bad}")
     return out
 
 
@@ -2412,10 +2439,12 @@ def _weight_bytes(params) -> int:
     """Bytes of every weight a decode step reads: all leaves but the
     embedding table (of which it reads B rows).  An MoE step reads every
     expert: the dispatch runs each expert's capacity slots."""
-    def walk(t):
-        return (sum(walk(v) for v in t.values()) if isinstance(t, dict)
-                else t.numel() * t.element_size())
-    return sum(walk(v) for k, v in params.items() if k != "embed")
+    return sum(_tree_bytes(v) for k, v in params.items() if k != "embed")
+
+
+def _tree_bytes(t) -> int:
+    return (sum(_tree_bytes(v) for v in t.values()) if isinstance(t, dict)
+            else t.numel() * t.element_size())
 
 
 def _family_continuous(eng, vocab: int) -> dict:
@@ -2556,7 +2585,7 @@ def _family_serve(arch_id: str, depth: int | None, quant: bool, card: str, dev) 
         if cfg.n_experts:
             line["speculative"] = _family_spec(eng, cfg.vocab_size)
         if quant:
-            line["int8_step_timing"] = step = _int8_step_timing(weights, dev)
+            line["int8_step_timing"] = step = _int8_step_timing(weights, dev, cfg.d_model)
             for name in KERNELS:
                 extras[name] = {arch_id: {
                     k: step[name][k] for k in ("rows", "ms", "plain_ms", "bound_ms",
@@ -2603,18 +2632,175 @@ def _family_encoder(card: str, dev) -> None:
           "seconds": time.perf_counter() - t0})
 
 
+RECURRENT = ("zamba2-7b", "rwkv6-3b")  # at published width and depth, bf16
+
+
+def _decode_bytes(arch, params, batch: int, max_len: int) -> dict:
+    """Bytes one decode step of ``batch`` rows must move: every weight but
+    the embedding table, the hybrid's shared block once per invocation (it
+    is read at each); the recurrent state (ssm / conv, wkv / shift leaves)
+    read and written; the attention KV read over the cache length."""
+    weights = _weight_bytes(params)
+    if "shared" in params:
+        weights += (n_shared_invocations(arch.cfg) - 1) * _tree_bytes(params["shared"])
+    cache = arch.init_cache(batch, max_len, META)
+    state = sum(2 * _tree_bytes(v) for k, v in cache.items() if not k.startswith("attn"))
+    kv = sum(_tree_bytes(v) for k, v in cache.items() if k.startswith("attn"))
+    total = weights + state + kv
+    return {"weights": weights, "state_read_written": state, "kv_read": kv, "total": total,
+            "floor_ms": total / HBM_BYTES_PER_S * 1e3}
+
+
+def _profiled(fn) -> tuple[float, int]:
+    """The card's busy ms and kernel count of one call of fn()."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_busy(prof)
+
+
+def _recurrent_continuous(eng, vocab: int) -> dict:
+    """8 requests of ``_poisson_draws`` through ``ContinuousScheduler``
+    (dense, n_slots 4, segment_len 8, max_len 128, scan and while), chunked
+    admission asked for: the family must fall back to per-request admission
+    with the reference's reason, and each request must equal its own
+    ``generate`` at B = 1 (a slot row's bits at B = 4 are B = 1's)."""
+    _, p_lens, n_news, prompts = serve._poisson_draws(_cont_args(8, 100.0, 8), vocab)
+    t0 = time.perf_counter()
+    e = _cont_engine(eng, "dense")
+    want = [e.generate(torch.from_numpy(p)[None].to(e.device), int(n))[0].tolist()
+            for p, n in zip(prompts, n_news)]
+    out = {"requests": len(prompts), "prompt_lens": [int(x) for x in p_lens],
+           "new_tokens": [int(x) for x in n_news], "oracle_seconds": time.perf_counter() - t0}
+    reason = e.arch.chunked_prefill_skip_reason()
+    for mode in ("scan", "while"):
+        t1 = time.perf_counter()
+        sched = ContinuousScheduler(e, n_slots=4, segment_len=8, segment_mode=mode,
+                                    prefill_chunk=16)
+        handles = [sched.submit(p, int(n)) for p, n in zip(prompts, n_news)]
+        sched.run()
+        torch.cuda.synchronize()
+        if sched.chunked or sched.stats["chunked_skip_reason"] != reason:
+            raise AssertionError(f"continuous {mode}: chunked {sched.chunked}, reason "
+                                 f"{sched.stats['chunked_skip_reason']!r}")
+        differing = sum(not h.done or h.tokens != w for h, w in zip(handles, want))
+        if differing:
+            raise AssertionError(f"continuous {mode}: {differing} of {len(want)} requests "
+                                 f"differ from generate at B = 1")
+        out[mode] = {"differing": 0, "segments": sched.stats["segments"],
+                     "steps_predicated": sched.stats.get("steps_predicated", 0),
+                     "seconds": time.perf_counter() - t1}
+    out["captures"] = _slot_captures_once(e)
+    out["capture_seconds"] = {k: v for k, v in e.capture_seconds.items() if v}
+    out["chunked_skip_reason"] = reason
+    return out
+
+
+def _recurrent_refusals(eng) -> dict:
+    """What the recurrent families do not serve, refused as the reference
+    does: speculation falls back, the paged pool raises, int8 weights are
+    refused up front (the reference fails later with ``KeyError``)."""
+    arch = eng.arch
+    spec = ServeEngine(arch, eng.params, dataclasses.replace(
+        eng.sc, spec=SpecConfig(k=SPEC_K, draft=f"truncate:{max(arch.cfg.n_layers // 4, 1)}")),
+        device=eng.device)
+    if spec.spec is not None or spec.spec_skip_reason != arch.spec_decode_skip_reason():
+        raise AssertionError(f"spec did not fall back: {spec.spec_skip_reason!r}")
+    out = {"spec_skip_reason": spec.spec_skip_reason}
+    try:
+        eng.init_paged_cache(8, 1)
+    except NotImplementedError as err:
+        out["paged_refusal"] = str(err)
+    else:
+        raise AssertionError("init_paged_cache did not raise")
+    try:
+        ServeEngine(arch, eng.params, dataclasses.replace(eng.sc, weight_quant="int8"),
+                    device=eng.device)
+    except ValueError as err:
+        out["int8_refusal"] = str(err)
+    else:
+        raise AssertionError("weight_quant='int8' was not refused")
+    if arch.paged_skip_reason() not in out["paged_refusal"]:
+        raise AssertionError(f"paged refused with {out['paged_refusal']!r}")
+    return out
+
+
+def _family_recurrent(arch_id: str, card: str, dev) -> None:
+    """A recurrent family at its published width and depth: random bf16
+    params from a seeded generator on the card, unquantized, greedy batch
+    4 × prompt 64 × 32 new on the "scan" loop (the prefill and decode step
+    as CUDA graphs, the state written in place into the cache's leaves).
+    Held: no hand kernel launched, tokens in range, a second run and the
+    "python" loop equal, the continuous requests and the refusals of
+    ``_recurrent_continuous`` / ``_recurrent_refusals``.  Timed: prefill
+    ms, decode ms/token and tok/s (median, min, max of 7), one decode-step
+    replay under the profiler (kernels, busy ms)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    arch = _family_arch(arch_id, None)
+    cfg = arch.cfg
+    eng = ServeEngine(arch, arch.init_params(torch.Generator(device=dev).manual_seed(0), dev),
+                      ServeConfig(max_len=FAMILY_MAX_LEN), device=dev)
+    torch.cuda.synchronize()
+    line = {"phase": "families", "card": card, "model": arch_id, "layers": cfg.n_layers,
+            "published_layers": get_arch(arch_id).cfg.n_layers,
+            "params": tree_param_count(eng.params), "param_dtype": cfg.param_dtype,
+            "weights": "bf16 (unquantized)", "init_seconds": time.perf_counter() - t0,
+            "decode_bytes": _decode_bytes(arch, eng.params, FAMILY_BATCH, FAMILY_MAX_LEN)}
+    prompts = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    _zero_counts()
+    tokens = eng.generate(prompts, FAMILY_NEW)
+    torch.cuda.synchronize()
+    launches = {n: c for n, (c, _) in counters.snapshot().items() if c}
+    if launches or tokens.shape != (FAMILY_BATCH, FAMILY_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"families {arch_id}: launches {launches}, tokens "
+                             f"{tuple(tokens.shape)}")
+    if not torch.equal(eng.generate(prompts, FAMILY_NEW), tokens):
+        raise AssertionError(f"families {arch_id}: a second run gave other tokens")
+    eager = ServeEngine(arch, eng.params, dataclasses.replace(eng.sc, loop="python"),
+                        device=dev)
+    if not torch.equal(eager.generate(prompts, FAMILY_NEW), tokens):
+        raise AssertionError(f"families {arch_id}: the python loop gave other tokens")
+    del eager
+    timing = _loop_timing(eng, prompts, FAMILY_NEW)
+    one, two = (_profiled(lambda n=n: eng.generate(prompts, n)) for n in (1, 3))
+    line.update({"batch": FAMILY_BATCH, "prompt_len": FAMILY_PROMPT,
+                 "new_tokens": FAMILY_NEW, "launches": launches,
+                 "captures": _captures(eng),
+                 "capture_seconds": {k: v for k, v in eng.capture_seconds.items() if v},
+                 "scan_equals_python": True, "two_runs_equal": True,
+                 "tokens_row0": tokens[0].tolist(),
+                 **{k: timing[k]["median"] for k in ("prefill_ms", "decode_ms_per_token",
+                                                     "tok_s")},
+                 "spread_of_7": timing,
+                 "decode_step_replay": {"kernels": (two[1] - one[1]) / 2,
+                                        "busy_ms": (two[0] - one[0]) / 2},
+                 "prefill_replay": {"kernels": one[1], "busy_ms": one[0]}})
+    line["continuous"] = _recurrent_continuous(eng, cfg.vocab_size)
+    line["refusals"] = _recurrent_refusals(eng)
+    line["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+
+
 def phase_families(card: str, dev) -> dict:
-    """Every family of ``models/transformer.py`` on the card, after the
-    tinyllama engines are released: mistral-nemo-12b (int8 0.5) and
-    moonshot-v1-16b-a3b (MoE, bf16) at full width and depth; internlm2-1.8b,
-    qwen2-vl-2b, command-r-35b (int8 0.5) and grok-1-314b (MoE, bf16) at
-    full width cut to 2 layers; hubert-xlarge's encoder forward.  Returns
-    what the kernels line adds."""
+    """Every model family on the card, after the tinyllama engines are
+    released: mistral-nemo-12b (int8 0.5) and moonshot-v1-16b-a3b (MoE,
+    bf16) at full width and depth; internlm2-1.8b, qwen2-vl-2b,
+    command-r-35b (int8 0.5) and grok-1-314b (MoE, bf16) at full width cut
+    to 2 layers; zamba2-7b and rwkv6-3b (bf16) at full width and depth;
+    hubert-xlarge's encoder forward.  Returns what the kernels line adds."""
     t0 = time.perf_counter()
     extras: dict = {}
     for arch_id, depth, quant in FAMILIES:
         for name, entry in _family_serve(arch_id, depth, quant, card, dev).items():
             extras.setdefault(name, {}).setdefault("families", {}).update(entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch_id in RECURRENT:
+        _family_recurrent(arch_id, card, dev)
         gc.collect()
         torch.cuda.empty_cache()
     _family_encoder(card, dev)

@@ -5,7 +5,9 @@ a numpy array (``np.array(leaf)`` of each JAX array: a writable copy, since
 ``np.asarray`` of a JAX array is read-only) and returns the same nesting of
 torch tensors on ``device``, dtypes kept (bf16 too, for the configs whose
 ``param_dtype`` is bfloat16): the stacked (L, …) layer leaves, the MoE
-block's router and (L, E, …) expert stacks, the ``qvalues`` / ``qscales``
+block's router and (L, E, …) expert stacks, the hybrid's ``mamba_layers``
+/ ``shared`` and rwkv's ``layers`` trees (their fp32 leaves, ``A_log``,
+``D``, ``dt_bias``, ``mu``, ``w0``, ``u``, ``decay_lora_*``, stay fp32), the ``qvalues`` / ``qscales``
 / ``qindices`` leaves of a quantized tree (int8, fp32, int32), the
 embedding, norm scales and biases (``norm_bias``, ``bias``) and fp kernels.  Lists and
 tuples are walked as dicts are (the CNNs' ``{"conv": [...], "fc": [...]}``).

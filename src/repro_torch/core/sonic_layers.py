@@ -384,12 +384,24 @@ def quantize_serve_params(
     An MoE tree is refused (``ValueError``): the walk would rewrite the
     router's ``{"kernel": (L, d, E)}`` too, which ``models.moe._router``
     reads as a dense kernel (the reference fails there, later, with
-    ``KeyError: 'kernel'``)."""
+    ``KeyError: 'kernel'``).  So are the hybrid (zamba2) and rwkv trees,
+    whose Mamba2 and RWKV blocks read their projections as ``["kernel"]``
+    (the reference fails there the same way): the error names the first
+    leaf the block reads so."""
     moe = params.get("layers", {}).get("moe")
     if isinstance(moe, dict) and "kernel" in moe.get("router", {}):
         raise ValueError("weight_quant='int8' would rewrite the MoE router's kernel "
                          "(layers/moe/router/kernel), which the router reads dense: "
                          "serve an MoE model with weight_quant='none'")
+    for leaf, family in (("mamba_layers/block/in_proj/kernel", "hybrid (Mamba2)"),
+                         ("layers/time_mix/wr/kernel", "rwkv")):
+        node = params
+        for key in leaf.split("/")[:-1]:
+            node = node.get(key, {}) if isinstance(node, dict) else {}
+        if isinstance(node, dict) and "kernel" in node:
+            raise ValueError(f"weight_quant='int8' would rewrite {leaf}, which the "
+                             f"{family} block reads as a dense kernel: serve this model "
+                             f"with weight_quant='none'")
 
     def quant_one(w: torch.Tensor) -> dict:
         blk = block or _auto_block(w.shape[0], w.shape[1])

@@ -9,12 +9,17 @@
            and request 0's tokens print live, then tok/s and p50/p95
            latency and TTFT.
 
-``--arch`` takes every config id: the transformer's families serve
-(hubert, encoder-only, is refused with the reference's reason, and int8
-on an MoE model with a ``ValueError``); zamba2-7b and rwkv6-3b are not
-ported and raise.  Weights are random, made from ``--seed`` on the device;
-batch prompts from ``--seed + 1``.  ``--loop`` picks the decode loop (``scan``, the default:
-one CUDA graph per decode step, replayed; ``while``: the same with an eos
+``--arch`` takes every config id: the transformer's families, zamba2-7b
+(hybrid) and rwkv6-3b serve.  hubert, encoder-only, is refused with the
+reference's reason, and ``--weight-quant int8`` on an MoE, hybrid or rwkv
+model exits with the engine's ``ValueError``.  The recurrent families admit
+per request (``--prefill-chunk`` falls back with the reference's reason),
+``--spec-*`` falls back to plain decoding with its reason, and
+``--kv-layout paged`` to the dense layout with its reason (the paged-only
+flags go with it); each fallback is logged.  Weights are random, made from
+``--seed`` on the device; batch prompts from ``--seed + 1``.  ``--loop``
+picks the decode loop (``scan``, the default: one CUDA graph per decode
+step, replayed; ``while``: the same with an eos
 early exit; ``python``: the eager loop; on the poisson workload "python"
 runs the slot programs eagerly) and ``--cache-quant-int8`` the int8 KV
 cache, as in the reference's launcher.  ``--spec-k`` (poisson workload,
@@ -49,6 +54,8 @@ On the CPU, at test size (the kernels' plain versions):
         --workload poisson --spec-k 2 --spec-draft truncate:1
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --workload poisson --trace --autotune
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --reduced \
+        --device cpu --workload poisson --n-requests 6 --rate 200 --new-tokens 12
 """
 from __future__ import annotations
 
@@ -221,6 +228,12 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
                              "on the CPU")
         build.load_library()
     arch = get_arch(args.arch, reduced=args.reduced)
+    reason = arch.paged_skip_reason() if args.kv_layout == "paged" else ""
+    if reason:
+        log.warning("paged KV disabled, falling back to the dense layout (and "
+                    "dropping --n-blocks / --overcommit / --preempt-mode): %s", reason)
+        args.kv_layout, args.n_blocks, args.overcommit = "dense", None, 1.0
+        args.preempt_mode = "recompute"
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.inference_mode():
         params = arch.init_params(gen, device)
@@ -246,8 +259,11 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
                          draft_sparsity=args.spec_sparsity) if args.spec_k else None),
         trace=args.trace,
     )
-    return ServeEngine(arch, params, sc, device=device,
-                       cache_quant_int8=args.cache_quant_int8)
+    try:
+        return ServeEngine(arch, params, sc, device=device,
+                           cache_quant_int8=args.cache_quant_int8)
+    except ValueError as e:  # a refusal: an encoder, int8 on an MoE or recurrent tree
+        raise SystemExit(f"{args.arch}: {e}") from e
 
 
 def make_prompts(args: argparse.Namespace, vocab_size: int) -> torch.Tensor:

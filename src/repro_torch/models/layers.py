@@ -15,7 +15,8 @@ Conventions:
   * a row's bits do not depend on how many rows come with it
     (``utils.rows``): a decode step, a verify window and a chunked prefill
     give each token the bits of the same token in any other of them.  The
-    dense projections and the norm pad their rows to a fixed floor, the
+    dense projections run in chunks of a fixed row count on the card
+    (``fixed_rows``), the norm's mean pads its rows to a fixed floor, the
     decode-style attention pads its query rows to ``DECODE_QUERY_ROWS``,
     and every cached prefill walks its queries in chunks of
     ``PREFILL_QUERY_CHUNK`` over the whole cache length.
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sonic_layers import draft_apply, serve_quant_apply
-from repro_torch.utils.rows import CPU_ROWS, DENSE_CUDA_ROWS, at_least_rows
+from repro_torch.utils.rows import CPU_ROWS, DENSE_CUDA_ROWS, at_least_rows, in_row_chunks
 
 Params = dict[str, Any]
 
@@ -57,6 +58,15 @@ def _row_floor(x: torch.Tensor) -> int:
     return DENSE_CUDA_ROWS if x.device.type == "cuda" else CPU_ROWS
 
 
+def fixed_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn over the rows of x (M, K) in the decode step's shape: on the card
+    every call of fn sees exactly ``DENSE_CUDA_ROWS`` rows (``in_row_chunks``,
+    at any M); elsewhere at least ``CPU_ROWS``."""
+    if x.device.type == "cuda":
+        return in_row_chunks(fn, x, DENSE_CUDA_ROWS)
+    return at_least_rows(fn, x, CPU_ROWS)
+
+
 # ---------------------------------------------------------------- init utils
 
 
@@ -82,7 +92,7 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
         y = draft_apply(p, x)
     else:
         w = p["kernel"].to(x.dtype)
-        y = at_least_rows(lambda xx: xx @ w, x.reshape(-1, x.shape[-1]), _row_floor(x))
+        y = fixed_rows(lambda xx: xx @ w, x.reshape(-1, x.shape[-1]))
         y = y.reshape(*x.shape[:-1], w.shape[-1])
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)

@@ -1,35 +1,34 @@
-"""Arch registry: maps every ported ``--arch`` id to its config and model
-module, with the serving support rules (the reference's skip reasons) and
-the cache contracts.
+"""Arch registry: maps every ``--arch`` id to its config and model module,
+with the serving support rules (the reference's skip reasons) and the
+cache contracts.
 
-A counterpart of ``repro.models.registry``.  Every family of
-``models.transformer`` is ported: dense, MoE, encoder and VLM (seven of the
-ten configs).  The hybrid (zamba2) and rwkv families are not:
-``get_arch`` refuses them.  The reference checks its cache contracts with
+A counterpart of ``repro.models.registry``.  Every family is ported:
+``_module_for`` dispatches as the reference's does, to ``models.hybrid``
+(zamba2), ``models.rwkv_model`` (rwkv6) or ``models.transformer`` (dense,
+MoE, encoder, VLM).  The reference checks its cache contracts with
 ``jax.eval_shape``; the port runs the same forwards for real on the
 ``meta`` device (shapes and dtypes, no data, so a full-width config costs
 nothing), over raw params made there, fed tokens, embeddings or M-RoPE
 positions as the arch's ``input_kind`` says.
 
-Cache layout contract (as in the reference): every cache leaf is
-(n_layers, B, …) with the batch / slot axis on ``CACHE_SLOT_AXIS``; a
-paged pool's leaves are (n_layers, n_blocks, block_len, …) with the block
-axis on ``CACHE_BLOCK_AXIS``.  The slot and block helpers below write in
-place and return the cache.
+Cache layout contract (as in the reference): every cache leaf carries the
+batch / slot axis on ``CACHE_SLOT_AXIS`` (the transformer's and the rwkv
+states' leading axis is the layer, the hybrid's attention leaves' the
+shared block's invocation); a paged pool's leaves are (n_layers, n_blocks,
+block_len, …) with the block axis on ``CACHE_BLOCK_AXIS``.  The slot and
+block helpers below write in place and return the cache.
 """
 from __future__ import annotations
 
 import dataclasses
+from types import ModuleType
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, get_config, reduced_config
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, rwkv_model, transformer
 
 META = torch.device("meta")
-
-# the families ``models.transformer`` serves
-TRANSFORMER_FAMILIES = ("dense", "moe", "encoder", "vlm")
 
 _INPUT_KIND = {
     "hubert-xlarge": "embeds",
@@ -37,17 +36,12 @@ _INPUT_KIND = {
 }
 
 
-def _unported_reason(cfg: ModelConfig) -> str:
-    """Why ``cfg``'s model module is not in the port ('' if it is)."""
+def _module_for(cfg: ModelConfig) -> ModuleType:
     if cfg.family == "hybrid":
-        return ("the hybrid family (models/{mamba2,hybrid}.py) is not ported: ROADMAP "
-                "Queue 1 item 2")
+        return hybrid
     if cfg.rwkv_head_size:
-        return ("the rwkv family (models/{rwkv6,rwkv_model}.py) is not ported: ROADMAP "
-                "Queue 1 item 2")
-    if cfg.family not in TRANSFORMER_FAMILIES:
-        return f"{cfg.family} family is not ported"
-    return ""
+        return rwkv_model
+    return transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,18 +55,30 @@ class Arch:
         "embeds+mrope" (the reference's stubbed modality frontends)."""
         return _INPUT_KIND.get(self.arch_id, "tokens")
 
+    @property
+    def module(self) -> ModuleType:
+        """``models.transformer``, ``models.hybrid`` or ``models.rwkv_model``."""
+        return _module_for(self.cfg)
+
+    @property
+    def recurrent(self) -> bool:
+        """Whether the cache carries recurrent state, which a forward
+        advances wherever it runs (its ``advance`` mask holds it)."""
+        return self.module is not transformer
+
     def init_params(self, gen: torch.Generator | None, device,
                     cfg: ModelConfig | None = None):
-        return transformer.init_params(cfg or self.cfg, gen, device)
+        return self.module.init_params(cfg or self.cfg, gen, device)
 
     def forward(self, params, cfg: ModelConfig | None = None, **kw):
-        return transformer.forward(params, cfg or self.cfg, **kw)
+        return self.module.forward(params, cfg or self.cfg, **kw)
 
     def init_cache(self, batch: int, max_len: int, device, cfg: ModelConfig | None = None,
                    cache_quant_int8: bool = False):
-        """Dense KV cache; ``cache_quant_int8`` is the reference's
-        ``MeshPlan.cache_quant_int8`` (int8 k / v and fp32 scales)."""
-        return transformer.init_cache(cfg or self.cfg, batch, max_len, device,
+        """The family's serving cache; ``cache_quant_int8`` is the
+        reference's ``MeshPlan.cache_quant_int8`` (int8 k / v and fp32
+        scales; the recurrent families ignore it, as the reference's do)."""
+        return self.module.init_cache(cfg or self.cfg, batch, max_len, device,
                                       cache_quant_int8=cache_quant_int8)
 
     # -- chunked prefill, speculative decoding, paged KV (serving) ----------
@@ -86,15 +92,9 @@ class Arch:
         strings)."""
         if self.cfg.encoder_only:
             return "encoder-only arch has no decode step"
-        if self.cfg.rwkv_head_size:
-            return ("rwkv carries O(1) recurrent state, not a growing KV "
-                    "cache; resuming prefill mid-prompt needs a state-"
-                    "snapshot contract that is not wired yet")
-        if self.cfg.family == "hybrid":
-            return ("hybrid cache mixes attention KV with O(1) ssm/conv "
-                    "state; chunk-resume over the recurrent leaves is not "
-                    "wired yet")
-        return _unported_reason(self.cfg)
+        if self.recurrent:
+            return self.module.CHUNKED_REASON
+        return ""
 
     @property
     def supports_spec_decode(self) -> bool:
@@ -116,14 +116,8 @@ class Arch:
         not (the reference's strings)."""
         if self.cfg.encoder_only:
             return "encoder-only arch has no decode step"
-        if self.cfg.rwkv_head_size:
-            return ("rwkv state is O(1) in sequence length — there is no "
-                    "growing KV cache to page")
-        if self.cfg.family == "hybrid":
-            return ("hybrid cache mixes attention KV with O(1) ssm/conv "
-                    "state; per-leaf paging not wired yet")
-        if _unported_reason(self.cfg):
-            return f"{self.arch_id}: model family has no init_paged_cache"
+        if self.recurrent:
+            return self.module.PAGED_REASON
         return ""
 
     def init_paged_cache(self, n_blocks: int, block_len: int, device,
@@ -148,15 +142,12 @@ class Arch:
 
 def get_arch(arch_id: str, reduced: bool = False) -> Arch:
     cfg = reduced_config(arch_id) if reduced else get_config(arch_id)
-    reason = _unported_reason(cfg)
-    if reason:
-        raise NotImplementedError(f"{arch_id}: {reason}")
     return Arch(arch_id=arch_id, cfg=cfg)
 
 
 # ------------------------------------------------------------ slot caches
 
-CACHE_SLOT_AXIS = 1  # every cache leaf is (n_layers, B, …)
+CACHE_SLOT_AXIS = 1  # every cache leaf is (n_layers or n_invocations, B, …)
 CACHE_BLOCK_AXIS = 1  # paged pools put the block axis where the slot axis is
 
 

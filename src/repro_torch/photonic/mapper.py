@@ -141,12 +141,11 @@ def lm_workload(
     """Beyond the paper: price an LM decode / forward step's linear layers
     (an MoE layer at its k active experts, the SwiGLU or gelu MLP).
 
-    The transformer families are priced as the reference prices them; a
-    config of a family the port does not serve (hybrid, rwkv) raises."""
-    if cfg.family in ("hybrid", "ssm") or cfg.rwkv_head_size:
-        raise NotImplementedError(f"{cfg.arch_id}: the {cfg.family} family is not ported; "
-                                  "lm_workload prices the transformer's attention and "
-                                  "SwiGLU / gelu-MLP / MoE layers")
+    Every config is priced as the reference prices it, with the
+    transformer's layout: q / k / v / o and the FFN, per layer.  That
+    holds for the hybrid (zamba2) and rwkv configs too, whose real layers
+    are Mamba2 blocks and time-mix / channel-mix (a deliberate reference
+    behaviour the port keeps: the two packages give the same numbers)."""
     d, h, kh, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     per_layer = [
         ("wq", d, h * dh), ("wk", d, kh * dh), ("wv", d, kh * dh), ("wo", h * dh, d),

@@ -4,12 +4,12 @@ The port of the per-launch serving cost models of
 ``repro.roofline.analytic`` (``StepCost``, ``decode_step_cost``,
 ``prefill_chunk_cost``, ``spec_verify_cost``, ``step_time``), for the
 families the port serves: the transformer's dense, MoE, encoder and VLM
-configs (SwiGLU or gelu-MLP FFNs, tied or untied LM head, experts).  The
-arithmetic is the reference's, term for term and in its order, so both
-packages price a launch to the same float.  The reference's hybrid and
-rwkv branches wait for those families (a config of either raises), and
-its ``analytic_cost`` over a ``ShapeSpec`` (training and whole-cell costs)
-is not ported: ``decode_step_cost`` inlines its decode branch.
+configs (SwiGLU or gelu-MLP FFNs, tied or untied LM head, experts), the
+hybrid (zamba2: Mamba2 layers and a shared attention block priced once per
+invocation) and rwkv.  The arithmetic is the reference's, term for term
+and in its order, so both packages price a launch to the same float.  Its
+``analytic_cost`` over a ``ShapeSpec`` (training and whole-cell costs) is
+not ported: ``decode_step_cost`` inlines its decode branch.
 
 These price what the serving programs in ``serve/engine.py`` EXECUTE, not
 what is useful: a decode segment attends the full max_len row every step
@@ -26,24 +26,36 @@ import dataclasses
 from repro_torch.configs.base import ModelConfig
 from repro_torch.roofline.hw import HWTarget
 
-_PRICED = ("dense", "moe", "encoder", "vlm")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _PRICED or cfg.rwkv_head_size:
-        raise ValueError(f"the serving cost models price the transformer families (the "
-                         f"dense decoder, MoE, encoder, VLM), not {cfg.family!r}")
+def _n_inv(cfg: ModelConfig) -> int:
+    """The hybrid's shared-block invocations."""
+    return (cfg.n_layers + cfg.shared_attention_every - 1) // cfg.shared_attention_every
 
 
 def _param_counts(cfg: ModelConfig) -> tuple[int, int]:
     """(active non-embedding + LM head, total) parameter counts."""
-    _check_family(cfg)
     d, f, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     embed = V * d * (1 if cfg.tie_embeddings else 2)  # embed + lm_head
+    if cfg.rwkv_head_size:
+        tm = 5 * d * d + 2 * d * cfg.rwkv_lora_decay + 2 * d
+        cm = d * f + f * d + d * d
+        per_layer = tm + cm
+        total = embed + L * per_layer
+        return L * per_layer + V * d, total
     attn = d * h * dh + 2 * d * kh * dh + h * dh * d
     n_ffn_mats = 3 if cfg.ffn == "swiglu" else 2
     ffn_dense = n_ffn_mats * d * f
+    if cfg.family == "hybrid":
+        dm_in = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+        mamba = d * dm_in + cfg.d_inner * d + cfg.ssm_conv_width * (
+            cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        )
+        shared = attn + ffn_dense  # ONE shared block
+        total = embed + L * mamba + shared
+        active = L * mamba + _n_inv(cfg) * shared + V * d  # shared reused n_inv times
+        return active, total
     if cfg.n_experts:
         experts = cfg.n_experts * n_ffn_mats * d * f
         active_experts = cfg.experts_per_token * n_ffn_mats * d * f
@@ -59,6 +71,22 @@ def _attn_flops(cfg: ModelConfig, tokens: float, s_ctx: float, causal: bool,
                 decode: bool) -> tuple[float, float]:
     """(useful, executed) attention score+pv FLOPs (projections excluded)."""
     h, dh = cfg.n_heads, cfg.head_dim
+    if cfg.rwkv_head_size:  # WKV recurrence: ~6·d·n per token
+        fl = 6.0 * cfg.d_model * cfg.rwkv_head_size * tokens * cfg.n_layers
+        return fl, fl
+    if cfg.family == "hybrid":
+        # SSD per token: intra-chunk 2·Lc·(G·N + H·P) + inter 4·H·N·P
+        Lc = cfg.ssm_chunk
+        hS, nS, pS, gS = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_groups
+        per_tok = 2 * Lc * (gS * nS + hS * pS) + 4 * hS * nS * pS
+        if decode:
+            per_tok = 6 * hS * nS * pS
+        ssd = per_tok * tokens * cfg.n_layers
+        # shared attention invocations
+        useful_ctx = s_ctx / 2 if (causal and not decode) else s_ctx
+        attn_u = 4 * h * dh * useful_ctx * tokens * _n_inv(cfg)
+        attn_x = 4 * h * dh * s_ctx * tokens * _n_inv(cfg)
+        return ssd + attn_u, ssd + attn_x
     useful_ctx = s_ctx / 2 if (causal and not decode and not cfg.encoder_only) else s_ctx
     return (
         4 * h * dh * useful_ctx * tokens * cfg.n_layers,
@@ -86,7 +114,10 @@ def decode_step_cost(
       flops = 2·n_active·b  +  4·h·dh·s_ctx·b·L
       bytes = wb·n_active  +  2·b·s_ctx·kh·dh·cb·L  +  4·b·d·2·L
 
-    ``cache_bytes_per_elem``: 2.0 for the bf16 KV cache, 1.03 for int8 with
+    The recurrent families replace the KV term: the hybrid reads its
+    n_inv shared-block caches and reads and writes its fp32 SSM state
+    (2·b·H·N·P·4·L); rwkv reads and writes its fp32 WKV state
+    (2·b·d·n·4·L).  ``cache_bytes_per_elem``: 2.0 for the bf16 KV cache, 1.03 for int8 with
     one fp32 scale per position and head.  ``weight_bytes_per_elem``: 2.0
     for bf16 weights, ~1.01·(1 − sparsity) for the int8 block-sparse
     serving format (int8 values, one fp32 scale and one int32 index per
@@ -99,8 +130,15 @@ def decode_step_cost(
     attn_u, attn_x = _attn_flops(cfg, tokens, s_ctx, causal=True, decode=True)
     hlo = lin_u + attn_x
     weight_traffic = n_active * weight_bytes_per_elem  # active weights read once
-    cache_traffic = (2.0 * b * s_ctx * cfg.n_kv_heads * cfg.head_dim
-                     * cache_bytes_per_elem * cfg.n_layers)
+    cb = cache_bytes_per_elem
+    cache_traffic = (2.0 * b * s_ctx * cfg.n_kv_heads * cfg.head_dim * cb * cfg.n_layers
+                     if not (cfg.rwkv_head_size or cfg.family == "hybrid") else 0.0)
+    if cfg.family == "hybrid":
+        cache_traffic = 2.0 * b * s_ctx * cfg.n_kv_heads * cfg.head_dim * cb * _n_inv(cfg)
+        cache_traffic += (2.0 * b * cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
+                          * cfg.n_layers)
+    if cfg.rwkv_head_size:
+        cache_traffic = 2.0 * b * cfg.d_model * cfg.rwkv_head_size * 4 * cfg.n_layers
     hbm = weight_traffic + cache_traffic + 4.0 * b * cfg.d_model * 2.0 * cfg.n_layers
     return StepCost(hlo, hbm, {
         "linear_useful": lin_u,
@@ -136,7 +174,8 @@ def prefill_chunk_cost(
       bytes = wb·n_total (weights, read once per launch)
               + 8·tokens·d·2·L (activations)
               + 2·ctx_sum·kh·dh·cb·L (KV write of the chunk + gather of the
-                attended context)
+                attended context; 0 for the recurrent families, whose
+                state traffic the decode model prices)
     """
     n_active, n_total = _param_counts(cfg)
     tokens = float(batch * chunk)
@@ -150,8 +189,11 @@ def prefill_chunk_cost(
     moe_pad = cfg.moe_capacity_factor if cfg.n_experts else 1.0
     flops = lin * moe_pad + attn_x
     act = 8.0 * tokens * cfg.d_model * 2.0 * cfg.n_layers
-    kv = (2.0 * ctx_sum * cfg.n_kv_heads * cfg.head_dim
-          * cache_bytes_per_elem * cfg.n_layers)
+    if cfg.rwkv_head_size or cfg.family == "hybrid":
+        kv = 0.0  # recurrent-state traffic is priced in the decode model
+    else:
+        kv = (2.0 * ctx_sum * cfg.n_kv_heads * cfg.head_dim
+              * cache_bytes_per_elem * cfg.n_layers)
     hbm = weight_bytes_per_elem * n_total + act + kv
     return StepCost(flops, hbm, {
         "linear": lin * moe_pad,

@@ -34,17 +34,23 @@ registered with each graph at capture (a graph is captured anew for another
 generator object), so a replayed draw advances the generator as an eager
 one does.
 
-The engine serves every family of ``models.transformer`` that decodes:
-dense, MoE and VLM (fed tokens, as the reference's engine feeds them); an
-encoder-only arch is refused with the reference's reason.  Under
+The engine serves every family that decodes: dense, MoE and VLM (fed
+tokens, as the reference's engine feeds them), the hybrid (zamba2) and
+rwkv; an encoder-only arch is refused with the reference's reason.  The
+recurrent families keep their state in the cache's leaves, written in
+place, so their prefill and decode step are graphs as the transformer's
+are; they serve per-request admission only, and speculation falls back
+with the reference's reason (``spec_skip_reason``).  Under
 ``ServeConfig(weight_quant="int8")`` every linear projection (q, k, v, o,
 wi, wg, wo and the LM head) is rewritten once, at construction, into int8
 block-sparse form (``core.sonic_layers.quantize_serve_params``), on the
 engine's device; tensors already in that form pass through.  An MoE model
 is served unquantized: int8 refuses its tree (the router reads a dense
-kernel; the reference fails there with a ``KeyError``).
+kernel; the reference fails there with a ``KeyError``), as it refuses the
+hybrid and rwkv trees (their blocks read dense kernels too).
 ``cache_quant_int8`` (the reference's ``MeshPlan.cache_quant_int8``) keeps
-the KV cache int8 with one fp32 scale per position and head.
+the KV cache int8 with one fp32 scale per position and head; for the
+recurrent families it does nothing, as in the reference.
 
 Semantics (as in the reference): the first token is sampled from the
 prefill logits and is never eos-pinned; every subsequent token is
@@ -761,12 +767,16 @@ class ServeEngine:
         """One masked decode step over every slot, in place (the reference's
         ``slot_step``, shared by every segment).  Inactive and done slots
         still flow through the forward but are masked: pos frozen, token
-        held, emitted −1.  ``go`` (while segments): where it is False
-        nothing advances, as if the loop had stopped."""
+        held, emitted −1 (a recurrent family's state still advances on the
+        held token there, as in the reference; admission overwrites the
+        slot's whole row).  ``go`` (while segments): where it is False
+        nothing advances, as if the loop had stopped, the recurrent state
+        included."""
         sc = self.sc
+        hold = {"advance": go} if go is not None and self.arch.recurrent else {}
         logits, _ = self.arch.forward(self.params, tokens=st.tok[:, None], cache=st.cache,
                                       cache_pos=st.pos, block_table=block_table,
-                                      query_rows=self.query_rows)
+                                      query_rows=self.query_rows, **hold)
         nxt = self._sample(logits[:, 0], st.generator)
         live = active & ~st.done
         if go is not None:

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+``chip_smoke.py``, the port's example and its tools imports JAX or the JAX
+package ``repro``."""
 import re
 from pathlib import Path
 
@@ -12,7 +13,8 @@ FORBIDDEN = re.compile(
 def test_port_imports_no_jax_and_no_repro():
     files = [p for p in sorted((ROOT / "src" / "repro_torch").rglob("*")) if p.is_file()
              and p.suffix in (".py", ".cu", ".cuh")]
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_sparse_torch.py",
+              ROOT / "tools" / "time_dense_prefill.py", ROOT / "tools" / "time_continuous.py"]
     assert len(files) > 20
     bad = [f"{p.relative_to(ROOT)}:{text[:m.start()].count(chr(10)) + 1}: {m.group(0).strip()}"
            for p in files for text in [p.read_text()] for m in FORBIDDEN.finditer(text)]

@@ -42,7 +42,7 @@ LAYER_TOL = 2e-5
 LOGIT_TOL = 1e-4
 TRANSFORMER_ARCHS = ("hubert-xlarge", "moonshot-v1-16b-a3b", "grok-1-314b", "command-r-35b",
                      "mistral-nemo-12b", "tinyllama-1.1b", "internlm2-1.8b", "qwen2-vl-2b")
-UNPORTED = ("zamba2-7b", "rwkv6-3b")
+RECURRENT = ("zamba2-7b", "rwkv6-3b")  # tests/test_torch_{mamba2,rwkv}.py
 DECODERS = tuple(a for a in TRANSFORMER_ARCHS if a not in ("hubert-xlarge", "tinyllama-1.1b"))
 MOE = ("moonshot-v1-16b-a3b", "grok-1-314b")
 QUANT = dict(weight_quant="int8", weight_quant_sparsity=0.5, weight_quant_block=(16, 16))
@@ -66,7 +66,7 @@ def _close(got: torch.Tensor, want, tol: float) -> None:
 
 def test_all_arch_ids_equal_the_reference():
     assert tbase.ALL_ARCH_IDS == jbase.ALL_ARCH_IDS
-    assert set(TRANSFORMER_ARCHS) | set(UNPORTED) == set(tbase.ALL_ARCH_IDS)
+    assert set(TRANSFORMER_ARCHS) | set(RECURRENT) == set(tbase.ALL_ARCH_IDS)
     assert {n: dataclasses.asdict(s) for n, s in tbase.SHAPES.items()} == \
         {n: dataclasses.asdict(s) for n, s in jbase.SHAPES.items()}
 
@@ -117,11 +117,21 @@ def test_cache_contracts_hold_for_every_decoder(arch_id, reduced):
         tR.check_paged_cache_contract(arch, cache_quant_int8=quant)
 
 
-@pytest.mark.parametrize("arch_id", UNPORTED)
+@pytest.mark.parametrize("arch_id", RECURRENT)
 def test_registry_refuses_the_families_not_ported(arch_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(arch_id)
-    assert jax_get_arch(arch_id).chunked_prefill_skip_reason()
+    """Once refused, now served: ``get_arch`` dispatches the recurrent
+    families to their modules as the reference's ``_module_for`` does, with
+    the reference's rules (its skip reasons: no chunk-resume, speculation or
+    paged KV), at the reduced and the full config."""
+    for reduced in (True, False):
+        arch, jarch = get_arch(arch_id, reduced), jax_get_arch(arch_id, reduced)
+        assert arch.module.__name__.rsplit(".", 1)[1] == jarch.module.__name__.rsplit(".", 1)[1]
+        assert arch.recurrent and arch.input_kind == jarch.input_kind
+        for rule in ("chunked_prefill_skip_reason", "spec_decode_skip_reason",
+                     "paged_skip_reason"):
+            assert getattr(arch, rule)() == getattr(jarch, rule)() != "", rule
+        for name, shape in tbase.SHAPES.items():
+            assert arch.supports(shape) == jarch.supports(jbase.SHAPES[name]), name
 
 
 # ------------------------------------------------------------------ layers
@@ -339,6 +349,14 @@ def test_costs_equal_the_reference(arch_id):
 
 
 def test_costs_refuse_the_families_not_ported():
-    for arch_id in UNPORTED:
-        with pytest.raises(ValueError, match="dense decoder"):
-            analytic.decode_step_cost(tbase.get_config(arch_id), 1, 8)
+    """Once refused, now priced: the recurrent families' decode-step cost
+    (the hybrid's shared-block KV per invocation and fp32 SSM state, rwkv's
+    WKV state) equals the reference's at the published and the reduced
+    config (``tests/test_torch_{mamba2,rwkv}.py`` hold the rest)."""
+    for arch_id in RECURRENT:
+        for get in ("get_config", "reduced_config"):
+            cfg, jcfg = getattr(tbase, get)(arch_id), getattr(jbase, get)(arch_id)
+            got = analytic.decode_step_cost(cfg, 1, 8)
+            want = jax_analytic.decode_step_cost(jcfg, 1, 8)
+            assert (got.flops, got.hbm_bytes, got.breakdown) == (
+                want.flops, want.hbm_bytes, want.breakdown)

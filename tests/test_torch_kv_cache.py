@@ -8,7 +8,6 @@ writes in place where the reference returns new arrays, so each test hands
 the port a copy and compares the copy afterwards.  Then the registry's
 cache contracts, which the port checks with forwards on the meta device.
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,12 +163,17 @@ def test_cache_contracts_hold_for_the_transformer(reduced, quant):
     tR.check_paged_cache_contract(arch, cache_quant_int8=quant)
 
 
-def test_cache_contracts_name_what_is_not_ported():
-    arch = tR.get_arch("tinyllama-1.1b", reduced=True)
-    other = dataclasses.replace(arch, cfg=arch.cfg.replace(family="hybrid"))
+@pytest.mark.parametrize("arch_id", ["zamba2-7b", "rwkv6-3b"])
+def test_cache_contracts_name_what_is_not_ported(arch_id):
+    """The recurrent families (the real reduced archs): the decode-carry and
+    slot contracts hold; chunk-resume and paged KV raise with the
+    family's reason, as the reference's contracts do."""
+    other = tR.get_arch(arch_id, reduced=True)
     assert other.chunked_prefill_skip_reason() and other.paged_skip_reason()
-    assert not other.supports_spec_decode
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    assert not other.supports_spec_decode and not other.supports_paged_kv
+    tR.check_decode_cache_carry(other)
+    tR.check_slot_cache_contract(other)
+    with pytest.raises(NotImplementedError, match=arch_id.split("-")[0][:4]):
         tR.check_slots_cache_contract(other)
     with pytest.raises(NotImplementedError):
         tR.check_paged_cache_contract(other)

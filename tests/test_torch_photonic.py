@@ -102,13 +102,19 @@ def test_lm_workload_matches_jax():
 
 
 def test_lm_workload_refuses_configs_it_does_not_price():
-    """The transformer families are priced (``tests/test_torch_families.py``
-    holds MoE, gelu-MLP and tied configs to the reference); the families
-    the port does not serve, hybrid and rwkv, raise rather than be priced
-    as transformer layers they do not have."""
+    """Once refused, now priced as the reference prices them: the hybrid
+    and rwkv configs with the transformer's q / k / v / o and FFN layout
+    (a deliberate reference behaviour), the same work and the same reports
+    (``tests/test_torch_families.py`` holds MoE, gelu-MLP and tied
+    configs)."""
     for arch_id in ("zamba2-7b", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            lm_workload(get_config(arch_id))
+        cfg, jcfg = get_config(arch_id), jax_get_arch(arch_id).cfg
+        for args in [(), (0.5, 0.5), (0.25, 0.75, 4)]:
+            got = [dataclasses.astuple(w) for w in lm_workload(cfg, *args)]
+            assert got == [dataclasses.astuple(w) for w in jmap.lm_workload(jcfg, *args)]
+        work = lm_workload(cfg, 0.5, 0.5)
+        assert [_tuple(r) for r in evaluate_all(work).values()] == \
+            [_tuple(r) for r in jbase.evaluate_all(jmap.lm_workload(jcfg, 0.5, 0.5)).values()]
 
 
 @pytest.fixture(scope="module")

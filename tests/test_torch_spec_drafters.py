@@ -27,7 +27,7 @@ from repro.sharding.mesh import MeshPlan
 from repro_torch.convert import params_from_jax
 from repro_torch.core.sonic_layers import (draft_leaf_dense, quantize_serve_params,
                                            sparse_draft_params, truncated_draft_params)
-from repro_torch.models.registry import Arch, get_arch
+from repro_torch.models.registry import get_arch
 from repro_torch.serve.engine import ServeConfig, ServeEngine, SpecConfig
 from repro_torch.serve.scheduler import ContinuousScheduler
 from torch_scheduler_pair import MAX_LEN, generate, prompts_of, sides_fixture, spec_parity
@@ -193,16 +193,20 @@ def _engine(traw, arch=None, **kw):
 def test_spec_skip_reason_is_the_chunked_prefill_one():
     arch = get_arch("tinyllama-1.1b", reduced=True)
     assert arch.supports_spec_decode and arch.spec_decode_skip_reason() == ""
-    other = Arch("rwkv6-3b", arch.cfg.replace(family="rwkv"))
-    reason = other.spec_decode_skip_reason()
-    assert reason and reason == other.chunked_prefill_skip_reason()
+    for arch_id in ("rwkv6-3b", "zamba2-7b"):
+        other = get_arch(arch_id, reduced=True)
+        reason = other.spec_decode_skip_reason()
+        assert reason and reason == other.chunked_prefill_skip_reason()
 
 
-def test_spec_falls_back_on_a_family_that_cannot_speculate(raw):
-    """The reason is recorded and the scheduler serves plain decoding."""
-    other = Arch("rwkv6-3b", _arch32().cfg.replace(family="rwkv"))
-    eng = _engine(raw[1], other, spec=SpecConfig(k=2, draft="truncate:1"))
-    assert eng.spec is None and "rwkv" in eng.spec_skip_reason
+@pytest.mark.parametrize("arch_id", ["rwkv6-3b", "zamba2-7b"])
+def test_spec_falls_back_on_a_family_that_cannot_speculate(arch_id):
+    """The reason is recorded and the scheduler serves plain decoding (the
+    real reduced recurrent archs, their own seeded params)."""
+    other = get_arch(arch_id, reduced=True)
+    params = other.init_params(torch.Generator().manual_seed(0), "cpu")
+    eng = _engine(params, other, spec=SpecConfig(k=2, draft="truncate:1"))
+    assert eng.spec is None and eng.spec_skip_reason == other.spec_decode_skip_reason()
     sched = ContinuousScheduler(eng, n_slots=1)
     h = sched.submit(np.arange(1, 5, dtype=np.int32), 4)
     sched.run()

@@ -223,8 +223,13 @@ def test_decode_and_prefill_costs_match_closed_form():
                                + 2.0 * ctx_sum * kh * dh * 2.0 * L, rtol=1e-12)
     assert analytic.step_time(analytic.StepCost(1e15, 1.0, {}), H100) == 1e15 / 989e12
     assert analytic.step_time(analytic.StepCost(1.0, 1e12, {}), H100) == 1e12 / 3.35e12
-    with pytest.raises(ValueError, match="dense decoder"):
-        analytic.decode_step_cost(cfg.replace(family="rwkv"), 1, 8)
+    # once refused, now priced as the reference prices them: the recurrent
+    # families' decode step (state traffic in place of the KV cache's)
+    for arch_id in ("zamba2-7b", "rwkv6-3b"):
+        got = analytic.decode_step_cost(get_config(arch_id), b, s)
+        want = jax_analytic.decode_step_cost(jax_get_config(arch_id), b, s)
+        assert (got.flops, got.hbm_bytes, got.breakdown) == (
+            want.flops, want.hbm_bytes, want.breakdown)
 
 
 # -------------------------------------------------------------- autotune
