@@ -232,6 +232,26 @@ Phases, in order; any failure exits non-zero before the last line:
      reference's reason) each equal to its own ``generate`` at B = 1; a
      ``truncate:N`` spec engine falls back with the reference's reason,
      ``init_paged_cache`` raises, and int8 weights are refused.
+ 17. training (``phase_train``, after the families; the card cleared
+     first; autograd inside ``torch.inference_mode(False)``):
+     tinyllama-1.1b at full width and depth through ``launch.train``'s
+     builder (``TRAIN_ARGS``): fp32 master params, bf16 compute, S = 4096,
+     global batch 2 as 2 microbatches of 1 through the int8 accumulator,
+     remat, block sparsity 0.75 at (128, 128) ramping over the run with a
+     refresh every 2 steps, the port's ``SyntheticLM``; 1 warm step, 5
+     timed (host clock, each ended by a synchronize: median, min, max),
+     tokens/s, model FLOPs a step (6 · matmul params · tokens + 12 · L · H
+     · Dh · S a token: the full S × S scores the port computes) against
+     989 TFLOP/s, peak memory, the losses (finite, the last below the
+     first; the L2 term and the cross-entropy part of the first and last),
+     the masked fraction after a refresh, pruned weights exactly 0, no
+     hand kernel launched; one step under the profiler split by class
+     (dense products, attention, loss, optimizer, mask refresh, other:
+     ``_train_split``); then the restart check at 2 layers
+     (``_train_restart``: 0 differing elements, checkpoint bytes, save and
+     restore seconds) and the dW of a dense product at M = 4096 against
+     fp64 (``_dw_witness``: one product within 2**-8 of max |dW|, the
+     serving path's 64-row chunks beyond it).
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -243,6 +263,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -283,13 +304,15 @@ from repro_torch.core.sparsity import (  # noqa: E402
     SparsityConfig,
     apply_masks,
     build_masks,
+    l2_regularization,
     sparsity_of,
 )
 from repro_torch.kernels.sonic_matmul import kernel as sm_kernel  # noqa: E402
 from repro_torch.kernels.sonic_matmul import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
 from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import cnn, layers, transformer  # noqa: E402
 from repro_torch.models.hybrid import n_shared_invocations  # noqa: E402
 from repro_torch.models.registry import META, get_arch  # noqa: E402
@@ -312,7 +335,8 @@ from repro_torch.serve.policy import (  # noqa: E402
 )
 from repro_torch.serve.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.serve.trace import trace_energy  # noqa: E402
-from repro_torch.utils.tree import tree_param_count  # noqa: E402
+from repro_torch.utils.rows import DENSE_CUDA_ROWS, in_row_chunks  # noqa: E402
+from repro_torch.utils.tree import named_leaves, tree_param_count, tree_size_bytes  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
@@ -2808,6 +2832,280 @@ def phase_families(card: str, dev) -> dict:
     return extras
 
 
+TRAIN_STEPS = 7  # 1 warm step, 5 timed, 1 profiled
+TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--seq", "4096", "--batch", "2", "--grad-accum", "2",
+              "--compressed-accum", "--sparsity", "0.75", "--lr", "1e-3",
+              "--steps", str(TRAIN_STEPS), "--mask-update-every", "2", "--no-resume"]
+RESTART_LAYERS, RESTART_STEPS = 2, 4
+# dW of one dense product at the training M (one microbatch of 4096 rows),
+# tinyllama's wi, against fp64: one product accumulates in fp32 inside
+# cuBLAS and rounds its bf16 output (one rounding is ≤ 2**-9 of an entry;
+# the bound allows two); 64-row chunks add 64 bf16 partial gradients in bf16
+DW_SHAPE = (4096, 2048, 5632)
+DW_BOUND = 2**-8  # of max |dW|
+TRAIN_CLASSES = ("attention", "train.loss", "train.optimizer", "train.mask_refresh")
+TRAIN_MARKS = (*TRAIN_CLASSES, "train.forward_backward")  # every range the step marks
+
+
+def _dw_witness(dev) -> dict:
+    """dW of ``layers.dense_apply`` under autograd (one product) and of the
+    same product in 64-row chunks (``in_row_chunks``, the serving path),
+    bf16 x and weight, each against the fp64 product x^T @ dy."""
+    m, k, n = DW_SHAPE
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    w0 = (torch.randn((k, n), generator=g, device=dev) * k**-0.5)
+    want = x.double().T @ dy.double()
+    out = {"shape": {"m": m, "k": k, "n": n}, "bound_of_max": DW_BOUND}
+
+    def chunked(w):  # the serving path: one cast, then 64-row products
+        wb = w.to(torch.bfloat16)
+        return in_row_chunks(lambda xx: xx @ wb, x, DENSE_CUDA_ROWS)
+
+    for name, fn in (("one_product", lambda w: layers.dense_apply({"kernel": w}, x)),
+                     ("row_chunks_64", chunked)):
+        w = w0.clone().requires_grad_()
+        (fn(w).float() * dy.float()).sum().backward()
+        out[name] = (w.grad.double() - want).abs().max().item() / want.abs().max().item()
+    if out["one_product"] > DW_BOUND or out["row_chunks_64"] <= DW_BOUND:
+        raise AssertionError(f"train: dW against fp64 {out}")
+    return out
+
+
+def _differing(a, b) -> dict:
+    """{leaf: elements whose bits differ} over two trees, those > 0, and the
+    total."""
+    left, right = dict(named_leaves(a)), dict(named_leaves(b))
+    if set(left) != set(right):
+        raise AssertionError(f"train: leaves differ {set(left) ^ set(right)}")
+
+    def bits(t):
+        return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()]) if t.dim() else t.reshape(1)
+
+    diff = {name: int((bits(left[name]) != bits(right[name])).sum()) for name in left}
+    return {"total": sum(diff.values()), "leaves": {k: v for k, v in diff.items() if v}}
+
+
+def _innermost(evs, is_range) -> dict:
+    """For each event of one thread, by correlation id, the innermost event
+    among those ``is_range`` picks that contains it (CPU ranges on one
+    thread nest), or None."""
+    out, stack = {}, []
+    for e in sorted(evs, key=lambda e: (e.start_ns(), -e.end_ns())):
+        while stack and stack[-1].end_ns() <= e.start_ns():
+            stack.pop()
+        out[e.correlation_id()] = stack[-1] if stack else None
+        if is_range(e):
+            stack.append(e)
+    return out
+
+
+def _op_classes(cpu_events) -> dict:
+    """{correlation id: class} of the CPU ops of a profiled step: the
+    innermost marked range (``TRAIN_CLASSES``) around an op; for an op of
+    the backward pass, the range around the forward op whose autograd node
+    it runs (``sequence_nr``, per forward thread); else "dense products"
+    for ``aten::mm`` / ``aten::addmm``."""
+    by_thread: dict = {}
+    for e in cpu_events:
+        by_thread.setdefault(e.start_thread_id(), []).append(e)
+    classes, forward = {}, {}
+    nodes = {}
+    for t, evs in by_thread.items():
+        marks = _innermost(evs, lambda e: e.name() in TRAIN_CLASSES)
+        nodes[t] = _innermost(evs, lambda e: e.name().startswith(
+            "autograd::engine::evaluate_function"))
+        for e in evs:
+            mark = marks[e.correlation_id()]
+            if mark is not None:
+                classes[e.correlation_id()] = mark.name()
+                if e.sequence_nr() >= 0:
+                    forward[(t, e.sequence_nr())] = mark.name()
+    for t, evs in by_thread.items():
+        for e in evs:
+            if e.correlation_id() in classes:
+                continue
+            node = nodes[t][e.correlation_id()]
+            cls = None if node is None else forward.get((node.fwd_thread_id(),
+                                                         node.sequence_nr()))
+            if cls is None and e.name() in ("aten::mm", "aten::addmm"):
+                cls = "dense products"
+            if cls is not None:
+                classes[e.correlation_id()] = cls
+    return classes
+
+
+TRAIN_CLASS_NAMES = {"attention": "attention", "train.loss": "loss",
+                     "train.optimizer": "optimizer", "train.mask_refresh": "mask refresh"}
+
+
+def _train_split(prof) -> dict:
+    """Device ms and kernels of one profiled step by class (``_op_classes``
+    of the op that launched each kernel; "other": the elementwise ops,
+    norms, casts and the embedding outside the marked ranges)."""
+    events = prof.profiler.kineto_results.events()
+    classes = _op_classes([e for e in events if e.device_type() == DeviceType.CPU])
+    op_name = {e.correlation_id(): e.name() for e in events
+               if e.device_type() == DeviceType.CPU}
+    ms: dict = {}
+    count: dict = {}
+    other: dict = {}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.name() in TRAIN_MARKS:
+            continue  # a marked range's span on the device, not a kernel
+        cls = classes.get(e.linked_correlation_id(), "other")
+        cls = TRAIN_CLASS_NAMES.get(cls, cls)
+        ms[cls] = ms.get(cls, 0.0) + e.duration_ns() / 1e6
+        count[cls] = count.get(cls, 0) + 1
+        if cls == "other":
+            key = f"{op_name.get(e.linked_correlation_id(), '?')} | {e.name()[:60]}"
+            other[key] = other.get(key, 0.0) + e.duration_ns() / 1e6
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
+    return {"ms": ms, "kernels": count, "busy_ms": sum(ms.values()), "other_top_ms": top}
+
+
+def _masked_fraction(tc, masks) -> dict:
+    """Zeros of the masks over the leaves the sparsity config prunes, and
+    over every param."""
+    leaves = dict(named_leaves(masks))
+    pruned = [m for name, m in leaves.items() if m.dim() >= 2
+              and tc.sparsity.layer_target(name) > 0]
+    zeros = lambda ms: sum(int((m == 0).sum()) for m in ms)  # noqa: E731
+    return {"pruned_leaves": zeros(pruned) / sum(m.numel() for m in pruned),
+            "all_params": zeros(leaves.values()) / sum(m.numel() for m in leaves.values())}
+
+
+def _train_restart(card: str, dev) -> dict:
+    """tinyllama-1.1b at full width, cut to ``RESTART_LAYERS`` layers, the
+    main run's settings: ``RESTART_STEPS`` steps straight, against half of
+    them, a checkpoint, a restore into a fresh state (another seed) and the
+    other half.  Every leaf of the two end states must have the same bits."""
+    arch = get_arch("tinyllama-1.1b")
+    arch = dataclasses.replace(arch, cfg=arch.cfg.replace(n_layers=RESTART_LAYERS))
+    args = train.parse_args([*TRAIN_ARGS, "--steps", str(RESTART_STEPS)])
+    run = train.build_trainer(args, arch)
+    straight = run.state
+    for i in range(RESTART_STEPS):
+        straight, _ = run.step(straight, run.data(i))
+    state = train.build_trainer(args, arch).state
+    for i in range(RESTART_STEPS // 2):
+        state, _ = run.step(state, run.data(i))
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = Checkpointer(str(ckpt_dir), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(state, step=RESTART_STEPS // 2)
+    save_s = time.perf_counter() - t0
+    fresh = train.build_trainer(train.parse_args([*TRAIN_ARGS, "--seed", "1"]), arch).state
+    t0 = time.perf_counter()
+    state = ck.restore(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    replaced = _differing(state, fresh)["total"] > 0
+    files = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    for i in range(int(state.step), RESTART_STEPS):
+        state, _ = run.step(state, run.data(i))
+    diff = _differing(straight, state)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if diff["total"] or not replaced:
+        raise AssertionError(f"train: restart differs {diff}")
+    return {"layers": RESTART_LAYERS, "steps": RESTART_STEPS,
+            "differing_elements": diff["total"], "checkpoint_bytes": tree_size_bytes(state),
+            "checkpoint_file_bytes": files, "save_seconds": save_s,
+            "restore_seconds": restore_s}
+
+
+def phase_train(card: str, dev) -> None:
+    """Training on the card (after the families; the serving engines are
+    released first), autograd free to record: tinyllama-1.1b at full width
+    and depth through ``launch.train``'s builder (``TRAIN_ARGS``: S = 4096,
+    2 microbatches of 1 through the int8 accumulator, remat, block sparsity
+    0.75 at (128, 128) ramping over the run, masks refreshed every 2
+    steps), 1 warm step, 5 timed (host clock, each ended by a
+    synchronize), 1 under the profiler; then the restart check
+    (``_train_restart``) and the dW witness (``_dw_witness``)."""
+    t0 = time.perf_counter()
+    with torch.inference_mode(False), torch.enable_grad():
+        torch.cuda.reset_peak_memory_stats()
+        args = train.parse_args(TRAIN_ARGS)
+        run = train.build_trainer(args)
+        tc, state = run.tc, run.state
+        if not (tc.remat and tc.compressed_accum and tc.grad_accum == 2
+                and tc.sparsity.block == (128, 128)):
+            raise AssertionError(f"train: the launcher's config {tc}")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _zero_counts()
+        losses, step_s, refreshed, l2 = [], [], None, {}
+        for i in range(TRAIN_STEPS):
+            masks_used = state.masks
+            if i in (0, TRAIN_STEPS - 1):  # the loss's L2 term, to report its CE part
+                l2[i] = tc.l2_coeff * float(l2_regularization(apply_masks(state.params,
+                                                                          state.masks)))
+            if i == TRAIN_STEPS - 1:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    tp = time.perf_counter()
+                    state, m = run.step(state, run.data(i))
+                    torch.cuda.synchronize()
+                    profiled_ms = (time.perf_counter() - tp) * 1e3
+            else:
+                tp = time.perf_counter()
+                state, m = run.step(state, run.data(i))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - tp)
+            losses.append(float(m["loss"]))
+            if (i % tc.mask_update_every == 0 and 0 < i < TRAIN_STEPS - 1):
+                refreshed = {"at_step": i, **_masked_fraction(tc, state.masks)}
+        launches = {n: c for n, (c, _) in counters.snapshot().items() if c}
+        peak = torch.cuda.max_memory_allocated()
+        split = _train_split(prof)
+        params = state.params
+        dead = sum(int((p[m == 0] != 0).sum()) for (_, p), (_, m) in
+                   zip(named_leaves(params), named_leaves(masks_used)))
+        cfg = run.arch.cfg
+        n_params = tree_param_count(params)
+        matmul_params = n_params - params["embed"]["embedding"].numel()
+        tokens = args.batch * args.seq
+        flops = tokens * (6 * matmul_params + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim
+                          * args.seq)
+        timed = step_s[1:]
+        med = statistics.median(timed)
+        if (launches or not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]
+                or refreshed is None or dead):
+            raise AssertionError(f"train: launches {launches}, losses {losses}, refresh "
+                                 f"{refreshed}, {dead} pruned weights not zero")
+        del run, state, params, prof, masks_used, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        restart = _train_restart(card, dev)
+        dw = _dw_witness(dev)
+    emit({"phase": "train", "card": card, "model": "tinyllama-1.1b", "layers": cfg.n_layers,
+          "params": n_params, "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.compute_dtype, "seq_len": args.seq, "global_batch": args.batch,
+          "grad_accum": args.grad_accum, "compressed_accum": True, "remat": cfg.remat_policy,
+          "sparsity": {"target": args.sparsity, "block": [128, 128],
+                       "mask_update_every": args.mask_update_every,
+                       "ramp_end_step": tc.sparsity.ramp_end_step},
+          "init_seconds": init_s, "first_step_ms": step_s[0] * 1e3,
+          "step_ms": {k: v * 1e3 for k, v in _spread(timed).items()},
+          "timed_steps": len(timed), "tokens_per_step": tokens, "tok_s": tokens / med,
+          "model_flops_per_step": flops,
+          "model_flops_share_of_989_tflops": flops / med / BF16_TENSOR_FLOPS,
+          "peak_memory_bytes": peak, "losses": losses, "first_loss": losses[0],
+          "last_loss": losses[-1], "l2_term": {"first": l2[0], "last": l2[TRAIN_STEPS - 1]},
+          "first_cross_entropy": losses[0] - l2[0],
+          "last_cross_entropy": losses[-1] - l2[TRAIN_STEPS - 1],
+          "masked_after_refresh": refreshed,
+          "pruned_weights_not_zero": dead, "launches": launches,
+          "profiled_step": {"wall_ms_under_profiler": profiled_ms,
+                            "busy_share_of_median_step": split["busy_ms"] / (med * 1e3),
+                            **split},
+          "restart": restart, "dw_against_fp64": dw, "seconds": time.perf_counter() - t0})
+
+
 @torch.inference_mode()
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2850,6 +3148,9 @@ def main() -> None:
     family_extras = phase_families(card, dev)
     for entry in kernels:
         entry.update(family_extras.get(entry["name"], {}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(card, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,7 +18,13 @@ the reference's ``SonicLinearParams`` with numpy fields (what
 whichever of its formats is populated: the dense ``w``, ``ClusteredWeight``,
 ``BlockSparseWeight``, ``SonicWeight`` or ``BlockSparseWeightInt8``.
 
-Both read numpy arrays and attributes only, so they need no JAX.
+``train_state_from_numpy`` takes the reference's ``TrainState`` with every
+leaf a numpy array (``jax.tree_util.tree_map(np.array, state)``) and
+returns the port's ``train.TrainState``: params, moments and masks as
+``params_from_jax`` carries them (bf16 moments too), the step a 0-dim int32
+tensor.
+
+All three read numpy arrays and attributes only, so they need no JAX.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from repro_torch.core.sonic_layers import (
     SonicLinearParams,
 )
 from repro_torch.kernels.sonic_matmul.ops import SonicWeight
+from repro_torch.train.train_state import TrainState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -49,6 +56,13 @@ def params_from_jax(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def train_state_from_numpy(state, device) -> TrainState:
+    masks = None if state.masks is None else params_from_jax(state.masks, device)
+    return TrainState(params=params_from_jax(state.params, device),
+                      opt_state=params_from_jax(dict(state.opt_state), device), masks=masks,
+                      step=_tensor(state.step, device).to(torch.int32))
 
 
 def linear_params_from_jax(p, device) -> SonicLinearParams:

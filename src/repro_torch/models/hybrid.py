@@ -21,6 +21,9 @@ decode step (S == 1 at ``cache_pos``).  Chunk-resume, the verify window and
 paged KV are refused with the registry's reasons (the reference's strings).
 ``advance`` (B,) or () bool: where False, the step leaves the recurrent
 state as it was (a predicated step of a while segment that has stopped).
+Training (no cache) with ``remat`` recomputes each layer, its shared block
+included, in the backward pass, nothing saved (the reference's
+``nothing_saveable`` around its scan body).
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import layer_trees
 from repro_torch.models.mamba2 import mamba2_apply, mamba2_dims, mamba2_init
+from repro_torch.utils.remat import remat as remat_fn
 
 Params = dict[str, Any]
 
@@ -108,6 +112,7 @@ def forward(
     decode_chunk: bool = False,
     query_rows: int = 0,
     advance: torch.Tensor | None = None,
+    remat: bool = False,  # training: recompute each layer in the backward
 ) -> tuple[torch.Tensor, dict | None]:
     """→ (logits (B, S, V), cache), the cache updated in place."""
     dtype = getattr(torch, cfg.compute_dtype)
@@ -118,18 +123,22 @@ def forward(
         positions = (torch.arange(s, device=x.device).expand(b, s) if cache_pos is None
                      else cache_pos[:, None])
     every = cfg.shared_attention_every
-    for i in range(cfg.n_layers):
+
+    def layer(i: int, lp: Params, x: torch.Tensor) -> torch.Tensor:
         if i % every == 0:
             inv = i // every
             kv = None if cache is None else (cache["attn_k"][inv], cache["attn_v"][inv])
             x = _shared_block(params["shared"], cfg, x, positions, kv, cache_pos, query_rows)
-        lp = _layer(params["mamba_layers"], i)
         mstate = None if cache is None else {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
         h, new = mamba2_apply(lp["block"], cfg, L.norm_apply(lp["ln"], x), mstate)
-        x = x + h
         if cache is not None:
             store(cache["ssm"][i], new["ssm"], advance)
             store(cache["conv"][i], new["conv"], advance)
+        return x + h
+
+    apply = remat_fn(layer) if remat and cache is None else layer
+    for i, lp in enumerate(layer_trees(params["mamba_layers"], cfg.n_layers)):
+        x = apply(i, lp, x)
     x = L.norm_apply(params["final_norm"], x)
     return L.lm_head_apply(params["lm_head"], x), cache
 

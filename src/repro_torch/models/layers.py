@@ -20,6 +20,12 @@ Conventions:
     decode-style attention pads its query rows to ``DECODE_QUERY_ROWS``,
     and every cached prefill walks its queries in chunks of
     ``PREFILL_QUERY_CHUNK`` over the whole cache length.
+  * a dense product that autograd records (training) is one product over
+    all its rows: its weight gradient is then one sum over the rows,
+    accumulated in fp32 and rounded once, where 64-row chunks would add
+    M / 64 partial gradients in the weight's (bf16) type.  Training has no
+    row-independence contract; serving runs under ``torch.inference_mode``
+    and keeps the chunks.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sonic_layers import draft_apply, serve_quant_apply
@@ -92,7 +99,11 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
         y = draft_apply(p, x)
     else:
         w = p["kernel"].to(x.dtype)
-        y = fixed_rows(lambda xx: xx @ w, x.reshape(-1, x.shape[-1]))
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = x2 @ w  # training: one product, so dW is one fp32-accumulated sum
+        else:
+            y = fixed_rows(lambda xx: xx @ w, x2)
         y = y.reshape(*x.shape[:-1], w.shape[-1])
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
@@ -451,8 +462,9 @@ def attention_apply(
         k = apply_rope(k, ang)
     pos2d = positions if positions.dim() == 2 else positions[:, 0, :]
 
-    if cache is None:
-        out = flash_attention(q, k, v, pos2d, pos2d, causal=causal, q_chunk=min(512, s))
+    if cache is None:  # training and the encoder: marked for the profiler's split
+        with record_function("attention"):
+            out = flash_attention(q, k, v, pos2d, pos2d, causal=causal, q_chunk=min(512, s))
         return dense_apply(p["wo"], out.reshape(b, s, h * dh)), None
     if cache_pos is None and (s == 1 or block_table is not None):
         raise ValueError("a decode step (S == 1) and a paged forward need cache_pos")

@@ -19,9 +19,10 @@ outputs in ascending expert order, one add at a time in x's type, where
 the reference scatter-adds the slots (``segment_sum``) in the same
 expert-major order: no atomics, so two runs give the same bits.
 
-Not ported (mesh and training): ``expert_split_factor``, ``_virtualize``,
-``_split_weights`` and the mesh constraints of ``moe_apply``, and
-``moe_load_balance_loss``.
+``moe_load_balance_loss`` is the reference's auxiliary loss on the same
+selection.  Not ported (they need a mesh): ``expert_split_factor``,
+``_virtualize``, ``_split_weights`` and the mesh constraints of
+``moe_apply``.
 """
 from __future__ import annotations
 
@@ -197,3 +198,14 @@ def moe_apply_dense(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
     onehot = F.one_hot(experts, cfg.n_experts).to(x.dtype)  # (B, S, k, E)
     w = (onehot * gates[..., None].to(x.dtype)).sum(2)  # (B, S, E)
     return torch.einsum("ebsd,bse->bsd", outs, w)
+
+
+def moe_load_balance_loss(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss, E · Σ_e (fraction of
+    assignments to e) · (mean router probability of e), for x (B, S, d);
+    the experts counted are the router's deterministic selection."""
+    logits = x.float() @ p["router"]["kernel"]
+    probs = torch.softmax(logits, dim=-1)
+    experts = torch.topk(_selection_logits(logits), cfg.experts_per_token, dim=-1).indices
+    frac = F.one_hot(experts, cfg.n_experts).float().mean((0, 1, 2))
+    return cfg.n_experts * (frac * probs.mean((0, 1))).sum()

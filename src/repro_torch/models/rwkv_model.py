@@ -12,7 +12,7 @@ them in place once the layer has run.
 The forward is attention-free: ``positions`` and ``cache_pos`` are
 ignored, as in the reference (a decode step continues from the state the
 cache holds), and so is ``query_rows``.  The verify window and paged KV
-are refused with the registry's reasons.  ``advance`` as in
+are refused with the registry's reasons.  ``advance`` and ``remat`` as in
 ``models.hybrid``.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import layer_trees
 from repro_torch.models.hybrid import refuse_modes, store
 from repro_torch.models.rwkv6 import (
     rwkv6_channel_mix_apply,
@@ -32,6 +32,7 @@ from repro_torch.models.rwkv6 import (
     rwkv6_time_mix_apply,
     rwkv6_time_mix_init,
 )
+from repro_torch.utils.remat import remat as remat_fn
 
 Params = dict[str, Any]
 
@@ -72,6 +73,7 @@ def forward(
     decode_chunk: bool = False,
     query_rows: int = 0,  # unused
     advance: torch.Tensor | None = None,
+    remat: bool = False,  # training: recompute each layer in the backward
 ) -> tuple[torch.Tensor, dict | None]:
     """→ (logits (B, S, V), cache), the cache updated in place."""
     del positions, cache_pos, query_rows
@@ -79,8 +81,8 @@ def forward(
     dtype = getattr(torch, cfg.compute_dtype)
     x = L.embed_apply(params["embed"], tokens, dtype) if embeds is None else embeds.to(dtype)
     x = L.norm_apply(params["embed_norm"], x)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+
+    def layer(i: int, lp: Params, x: torch.Tensor) -> torch.Tensor:
         st = None if cache is None else {name: leaf[i] for name, leaf in cache.items()}
         h, new_t = rwkv6_time_mix_apply(
             lp["time_mix"], cfg, L.norm_apply(lp["ln1"], x),
@@ -93,6 +95,11 @@ def forward(
         if st is not None:
             for name, new in {**new_t, **new_c}.items():
                 store(st[name], new, advance)
+        return x
+
+    apply = remat_fn(layer) if remat and cache is None else layer
+    for i, lp in enumerate(layer_trees(params["layers"], cfg.n_layers)):
+        x = apply(i, lp, x)
     x = L.norm_apply(params["final_norm"], x)
     return L.lm_head_apply(params["lm_head"], x), cache
 

@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.utils.remat import remat as remat_fn
 
 Params = dict[str, Any]
 
@@ -68,9 +69,15 @@ def layer_apply(
     return x + L.ffn_apply(p["ffn"], hin)
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer i's params: a view of every stacked (L, …) leaf."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def layer_trees(tree: Params, n: int) -> list[Params]:
+    """The params of each of the n layers: views of every stacked (L, …)
+    leaf, one ``unbind`` per leaf (whose backward stacks the n gradients
+    at once, where n indexed views would each scatter into a zero tensor
+    of the whole stack's size)."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    per_key = {k: layer_trees(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 CACHE_LEAVES = ("k", "v", "k_scale", "v_scale")  # the int8-KV cache's order
@@ -86,17 +93,19 @@ def trunk_apply(
     block_table: torch.Tensor | None = None,  # paged: the leaves are pools
     decode_chunk: bool = False,  # speculative-verify window
     query_rows: int = 0,  # decode-style attention's padded query rows
+    remat: bool = False,  # training: recompute each layer in the backward
 ) -> tuple[torch.Tensor, dict | None]:
     """Apply the stacked layers in order.  The cache is updated in place
     (each layer writes its view of every leaf) and returned.  With
     ``block_table`` the leaves are block pools (L, n_blocks, block_len, …),
     the table shared by every layer; with ``k_scale`` / ``v_scale`` leaves
-    the cache is int8 KV."""
+    the cache is int8 KV.  ``remat`` (without a cache) recomputes each
+    layer in the backward pass by ``cfg.remat_policy``."""
     leaves = [] if cache is None else [n for n in CACHE_LEAVES if n in cache]
-    for i in range(cfg.n_layers):
+    apply = remat_fn(layer_apply, cfg.remat_policy) if remat and cache is None else layer_apply
+    for i, lp in enumerate(layer_trees(params["layers"], cfg.n_layers)):
         kv = tuple(cache[n][i] for n in leaves) or None
-        x = layer_apply(_layer(params["layers"], i), cfg, x, positions, kv, cache_pos,
-                        block_table, decode_chunk, query_rows)
+        x = apply(lp, cfg, x, positions, kv, cache_pos, block_table, decode_chunk, query_rows)
     return x, cache
 
 
@@ -112,6 +121,7 @@ def forward(
     block_table: torch.Tensor | None = None,  # (B, MB) — paged KV
     decode_chunk: bool = False,  # speculative-verify window
     query_rows: int = 0,  # decode-style attention's padded query rows
+    remat: bool = False,  # training: recompute each layer in the backward
 ) -> tuple[torch.Tensor, dict | None]:
     """→ (logits (B, S, V), cache).
 
@@ -138,7 +148,7 @@ def forward(
             # row's cache offset
             positions = cache_pos[:, None] + positions
     x, cache = trunk_apply(params, cfg, x, positions, cache, cache_pos, block_table,
-                           decode_chunk, query_rows)
+                           decode_chunk, query_rows, remat)
     x = L.norm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
         return L.tied_head_apply(params["embed"], x), cache
@@ -178,3 +188,16 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_len: int, device,
                          f"{(n_blocks, block_len)}")
     shape = (cfg.n_layers, n_blocks, block_len, cfg.n_kv_heads, cfg.head_dim)
     return _kv_cache(shape, device, dtype, cache_quant_int8)
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in fp32 over logits (B, S, V) and labels
+    (B, S) (−1 = ignore), divided by max(valid tokens, 1).  The label's
+    logit is taken by a compare-and-sum over the vocab, as the reference
+    takes it."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    onehot = labels[..., None] == torch.arange(lf.shape[-1], device=lf.device)
+    ll = torch.where(onehot, lf, 0.0).sum(-1)
+    valid = (labels >= 0).float()
+    return ((lse - ll) * valid).sum() / torch.clamp(valid.sum(), min=1.0)

@@ -1,0 +1,31 @@
+"""TrainState: params + optimizer moments + sparsity masks + step.
+
+The port of ``repro.train.train_state``.  A named tuple, so it flattens as
+the reference's pytree node does, to (params, opt_state, masks, step): the
+checkpointer names its leaves ``0/<params path>``, ``1/m/…``, ``1/v/…``,
+``2/<masks path>`` and ``3``, the reference's names.  ``abstract_train_state``
+(the dry run's) waits for the mesh slice.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core.sparsity import build_masks
+from repro_torch.train.optimizer import adamw_init
+from repro_torch.utils.tree import named_leaves
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: dict[str, Any]  # {"m": tree, "v": tree}
+    masks: Any | None  # sparsity masks (the params' nesting) or None
+    step: torch.Tensor  # () int32, on the params' device
+
+
+def init_train_state(params: Any, opt_cfg, sparsity_cfg=None) -> TrainState:
+    device = next(leaf for _, leaf in named_leaves(params)).device
+    masks = None if sparsity_cfg is None else build_masks(params, sparsity_cfg, step=0)
+    return TrainState(params=params, opt_state=adamw_init(params, opt_cfg), masks=masks,
+                      step=torch.zeros((), dtype=torch.int32, device=device))

@@ -1,8 +1,10 @@
 """Helpers over parameter trees: nested dicts (and lists / tuples) of tensors.
 
 The port's counterpart of ``repro.utils.tree``.  A leaf's name is its path
-of keys (or list positions) joined by "/"; dict keys are visited in sorted
-order, as JAX flattens dicts.
+of keys (or list / tuple positions) joined by "/"; dict keys are visited in
+sorted order, as JAX flattens dicts.  A named tuple (``train.TrainState``)
+is a tuple of its fields, as the reference's pytree nodes flatten to their
+children; ``None`` holds no leaf.
 """
 from __future__ import annotations
 
@@ -32,11 +34,24 @@ def tree_map_with_path_names(fn: Callable[[str, Any], Any], tree: Any,
     if isinstance(tree, dict):
         return {k: tree_map_with_path_names(fn, v, _join(prefix, k)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path_names(fn, v, _join(prefix, i))
-                          for i, v in enumerate(tree))
+        out = [tree_map_with_path_names(fn, v, _join(prefix, i)) for i, v in enumerate(tree)]
+        return tree._make(out) if hasattr(tree, "_make") else type(tree)(out)
     return tree if tree is None else fn(prefix, tree)
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """fn over the leaves of ``tree`` and the leaves at the same paths of
+    each tree of ``rest`` (which must have ``tree``'s nesting)."""
+    others = [dict(named_leaves(r)) for r in rest]
+    return tree_map_with_path_names(lambda name, leaf: fn(leaf, *(o[name] for o in others)),
+                                    tree)
 
 
 def tree_param_count(tree: Any) -> int:
     """Total number of elements over every leaf."""
     return sum(leaf.numel() for _, leaf in named_leaves(tree))
+
+
+def tree_size_bytes(tree: Any) -> int:
+    """Total bytes over every leaf (elements × element size)."""
+    return sum(leaf.numel() * leaf.element_size() for _, leaf in named_leaves(tree))

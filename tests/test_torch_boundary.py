@@ -14,6 +14,7 @@ def test_port_imports_no_jax_and_no_repro():
     files = [p for p in sorted((ROOT / "src" / "repro_torch").rglob("*")) if p.is_file()
              and p.suffix in (".py", ".cu", ".cuh")]
     files += [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_sparse_torch.py",
+              ROOT / "examples" / "sparse_training_torch.py",
               ROOT / "tools" / "time_dense_prefill.py", ROOT / "tools" / "time_continuous.py"]
     assert len(files) > 20
     bad = [f"{p.relative_to(ROOT)}:{text[:m.start()].count(chr(10)) + 1}: {m.group(0).strip()}"
