@@ -252,6 +252,20 @@ Phases, in order; any failure exits non-zero before the last line:
      restore seconds) and the dW of a dense product at M = 4096 against
      fp64 (``_dw_witness``: one product within 2**-8 of max |dW|, the
      serving path's 64-row chunks beyond it).
+ 18. the mesh (``phase_mesh``, after training): a one-rank NCCL group and a
+     (1, 1) ("data", "model") mesh on the card; tinyllama-1.1b at full
+     width cut to ``MESH_LAYERS`` layers, ``TRAIN_ARGS``' step (2
+     microbatches through the int8 accumulator, remat, a mask refresh) at S
+     = ``MESH_SEQ``, once with the plan (DTensor state and batch) and once
+     without, from the same state on the same batch: the loss and every
+     param and mask after the step must have the same bits (differing
+     elements and max |Δ| printed), no hand kernel launched.  Then three
+     cells of ``launch/dryrun.py`` under a fake group (``MESH_CELLS``:
+     tinyllama-1.1b × train_4k and × decode_32k on (16, 16), grok-1-314b ×
+     train_4k on (2, 16, 16), its 8 experts on TP-split d_ff): each must
+     end ``ok``; its trace seconds, peak bytes per device against 80 GB,
+     collective counts and wire bytes by kind and the dominant roofline
+     term against the H100 datasheet target (estimates, not card numbers).
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -271,6 +285,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -312,7 +327,7 @@ from repro_torch.kernels.sonic_matmul import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.sparse_matvec import kernel as smv_kernel  # noqa: E402
 from repro_torch.kernels.sparse_matvec import ops as smv_ops  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.models import cnn, layers, transformer  # noqa: E402
 from repro_torch.models.hybrid import n_shared_invocations  # noqa: E402
 from repro_torch.models.registry import META, get_arch  # noqa: E402
@@ -335,6 +350,10 @@ from repro_torch.serve.policy import (  # noqa: E402
 )
 from repro_torch.serve.scheduler import ContinuousScheduler  # noqa: E402
 from repro_torch.serve.trace import trace_energy  # noqa: E402
+from repro_torch.sharding.mesh import make_plan  # noqa: E402
+from repro_torch.sharding.partition import shard_params  # noqa: E402
+from repro_torch.train.loop import build_train_step  # noqa: E402
+from repro_torch.train.train_state import TrainState  # noqa: E402
 from repro_torch.utils.rows import DENSE_CUDA_ROWS, in_row_chunks  # noqa: E402
 from repro_torch.utils.tree import named_leaves, tree_param_count, tree_size_bytes  # noqa: E402
 
@@ -3106,6 +3125,94 @@ def phase_train(card: str, dev) -> None:
           "restart": restart, "dw_against_fp64": dw, "seconds": time.perf_counter() - t0})
 
 
+MESH_LAYERS, MESH_SEQ = 2, 1024
+MESH_CELLS = (("tinyllama-1.1b", "train_4k", False), ("tinyllama-1.1b", "decode_32k", False),
+              ("grok-1-314b", "train_4k", True))
+
+
+def _full(tree):
+    """A tree of DTensors as their logical (plain) tensors."""
+    return {n: (t.full_tensor() if hasattr(t, "full_tensor") else t)
+            for n, t in named_leaves(tree)}
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def phase_mesh(card: str, dev) -> None:
+    """The sharded train step on a one-rank NCCL mesh against the plan-less
+    step, then three dry-run cells (see the module doc, phase 18)."""
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    with torch.inference_mode(False), torch.enable_grad():
+        arch = get_arch("tinyllama-1.1b")
+        arch = dataclasses.replace(arch, cfg=arch.cfg.replace(n_layers=MESH_LAYERS))
+        args = train.parse_args([*TRAIN_ARGS, "--seq", str(MESH_SEQ)])
+        tc = train.train_config(args)
+        run = train.build_trainer(args, arch)
+        plan = make_plan(arch.cfg, mesh, args.batch)
+        state, batch = run.state, run.data(0)
+        _zero_counts()
+        tp = time.perf_counter()
+        plain, pm = run.step(state, batch, 0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tp) * 1e3
+
+        def shard(tree):
+            return shard_params(tree, plan)
+
+        sharded = TrainState(shard(state.params),
+                             {k: shard(v) for k, v in state.opt_state.items()},
+                             shard(state.masks), state.step)
+        step = build_train_step(arch, tc, plan=plan)
+        tp = time.perf_counter()
+        meshed, mm = step(sharded, {k: plan.shard(v, plan.dp, None) for k, v in batch.items()},
+                          0)
+        torch.cuda.synchronize()
+        meshed_ms = (time.perf_counter() - tp) * 1e3
+        launches = {n: c for n, (c, _) in counters.snapshot().items() if c}
+        diff = {part: _differing(_full(getattr(meshed, part)), _full(getattr(plain, part)))
+                for part in ("params", "masks")}
+        loss_same = bool(torch.equal(mm["loss"], pm["loss"]))
+        gnorm_same = bool(torch.equal(mm["grad_norm"], pm["grad_norm"]))
+        max_abs = _max_abs(_full(meshed.params), _full(plain.params))
+        del run, state, plain, meshed, sharded
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_rank = {"layers": MESH_LAYERS, "seq_len": MESH_SEQ, "global_batch": args.batch,
+                "grad_accum": args.grad_accum, "mesh": [1, 1], "attn_shard": plan.attn_shard,
+                "loss": float(pm["loss"]), "loss_bits_equal": loss_same,
+                "grad_norm_bits_equal": gnorm_same,
+                "differing_param_elements": diff["params"]["total"],
+                "differing_mask_elements": diff["masks"]["total"],
+                "differing_leaves": diff["params"]["leaves"], "param_max_abs_diff": max_abs,
+                "plain_step_ms": plain_ms, "meshed_step_ms": meshed_ms, "launches": launches}
+    if launches or not math.isfinite(one_rank["loss"]):
+        raise AssertionError(f"mesh: {one_rank}")
+    cells = []
+    for arch_id, shape, multi in MESH_CELLS:
+        rec = dryrun.run_cell(arch_id, shape, multi, verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"mesh: dry run {arch_id} × {shape}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+        cells.append({k: rec[k] for k in ("arch", "shape", "mesh", "step_fn", "n_chips",
+                                          "trace_s", "fits", "collectives", "roofline")}
+                     | {"peak_gb_per_dev": rec["memory"]["peak_bytes_per_dev_est"] / 1e9,
+                        "argument_gb_per_dev": rec["memory"]["argument_bytes_per_dev"] / 1e9,
+                        "flops_per_dev": rec["hlo_cost"]["flops_per_dev_raw"]})
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    emit({"phase": "mesh", "card": card, "one_rank_train_step": one_rank,
+          "dry_run_cells": cells, "dry_run_target": "H100 datasheet (roofline/hw.py), estimates",
+          "hbm_gb": 80, "seconds": time.perf_counter() - t0})
+
+
 @torch.inference_mode()
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3151,6 +3258,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh(card, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

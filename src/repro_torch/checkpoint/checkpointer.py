@@ -20,7 +20,15 @@ retention, async save (the leaves copied to the host first, then written by
 a background thread; ``wait()`` joins), integrity (the manifest's leaf count
 checked, and a leaf the template has but the checkpoint lacks raises
 ``IOError``).  ``restore`` places every leaf on its template leaf's device
-(or on ``device``).  Restoring across meshes waits for the sharding slice.
+(or on ``device``).
+
+Sharded states (DTensor leaves): ``save`` gathers each leaf's logical value
+on every rank (a collective, so every rank calls it), rank 0 alone writes,
+and the save ends at a barrier; the files are the unsharded format, so any
+mesh, or none, reads them.  ``restore(..., shardings=)`` (a tree of
+``sharding.mesh.NamedSharding``), or a template of DTensors, puts every
+leaf into that layout, each rank keeping its own block: the elastic
+restore onto another mesh.
 """
 from __future__ import annotations
 
@@ -32,7 +40,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.sharding.mesh import distribute_copy
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.tree import named_leaves, tree_map_with_path_names
 
@@ -66,9 +77,16 @@ class Checkpointer:
 
     # ---------------------------------------------------------------- save
     def save(self, state: Any, step: int, async_: bool = False) -> None:
+        leaves = list(named_leaves(state))
+        sharded = any(isinstance(leaf, DTensor) for _, leaf in leaves)
         host = [(name, arr, _BF16 if leaf.dtype == torch.bfloat16 else str(arr.dtype))
-                for name, leaf in named_leaves(state) for arr in [_host(leaf)]]
-        if async_:
+                for name, leaf in leaves
+                for arr in [_host(leaf.full_tensor() if isinstance(leaf, DTensor) else leaf)]]
+        if sharded:
+            if dist.get_rank() == 0:
+                self._save_sync(host, step)
+            dist.barrier()
+        elif async_:
             self.wait()
             self._thread = threading.Thread(target=self._save_sync, args=(host, step),
                                             daemon=True)
@@ -137,10 +155,13 @@ class Checkpointer:
         with open(path) as f:
             return int(f.read().strip())
 
-    def restore(self, template: Any, step: int | None = None, device=None) -> Any:
+    def restore(self, template: Any, step: int | None = None, device=None,
+                shardings: Any | None = None) -> Any:
         """The checkpoint in the nesting of ``template`` (dicts, lists,
         ``TrainState``), each leaf on its template leaf's device, or on
-        ``device`` when given."""
+        ``device`` when given.  ``shardings`` (a tree of ``NamedSharding``
+        in the template's nesting) lays every leaf out on its mesh; a
+        DTensor template leaf without one takes the template's layout."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
@@ -161,6 +182,12 @@ class Checkpointer:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise IOError(f"checkpoint step_{step}: {name} has shape {tuple(t.shape)}, "
                               f"the template {tuple(leaf.shape)}")
-            return t.to(device if device is not None else leaf.device)
+            t = t.to(device if device is not None else leaf.device)
+            if name in layouts:
+                return layouts[name].distribute(t)
+            if isinstance(leaf, DTensor):
+                return distribute_copy(t, leaf.device_mesh, leaf.placements)
+            return t
 
+        layouts = dict(named_leaves(shardings)) if shardings is not None else {}
         return tree_map_with_path_names(one, template)

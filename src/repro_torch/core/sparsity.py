@@ -27,6 +27,7 @@ import dataclasses
 from typing import Any, Mapping, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.utils.tree import named_leaves, tree_map_with_path_names
 
@@ -135,8 +136,10 @@ def _quantile_last(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     pos = q * torch.tensor(float(n - 1), dtype=torch.float32, device=a.device)
     lo, hi = torch.floor(pos), torch.ceil(pos)
     hi_w = pos - lo
-    lo_v = a[..., lo.long().clamp(0, n - 1)].unsqueeze(-1)
-    hi_v = a[..., hi.long().clamp(0, n - 1)].unsqueeze(-1)
+    # index_select with a 1-element index: the position stays on the device
+    # (indexing with a 0-dim tensor would read it back as a Python int)
+    lo_v = a.index_select(-1, lo.long().clamp(0, n - 1).reshape(1))
+    hi_v = a.index_select(-1, hi.long().clamp(0, n - 1).reshape(1))
     return lo_v * (1 - hi_w) + hi_v * hi_w
 
 
@@ -164,6 +167,23 @@ def block_prune_mask(
     return keep.reshape(w.shape).to(w.dtype)
 
 
+def _gathered_slices(fn, w):
+    """fn over a DTensor leaf's logical value, one leading slice at a time
+    for a stack of ≥ 3 dims (its slices are pruned independently): each
+    slice gathered whole on every device, its mask kept in the slice's
+    layout (each device keeps a copy of its own block, no further
+    exchange)."""
+    from repro_torch.sharding.mesh import distribute_copy
+
+    def one(t):
+        return distribute_copy(fn(t.full_tensor()), t.device_mesh, t.placements)
+
+    if w.dim() < 3:
+        return one(w)
+    return torch.stack([one(w[i]) for i in range(w.shape[0])]).redistribute(
+        w.device_mesh, w.placements)
+
+
 def build_masks(params: Any, config: SparsityConfig,
                 step: torch.Tensor | int | None = None) -> Any:
     """A mask tree matching ``params``.
@@ -171,7 +191,8 @@ def build_masks(params: Any, config: SparsityConfig,
     Only rank ≥ 2 leaves whose layer target is > 0 get a non-trivial mask;
     every other leaf gets all ones (kept, so both trees have one nesting).
     With ``step``, each layer's target is scaled by the gradual schedule,
-    as sparsity-aware training uses it."""
+    as sparsity-aware training uses it.  A sharded (DTensor) leaf is pruned
+    on its logical value (``_gathered_slices``)."""
 
     def one(name: str, w: torch.Tensor) -> torch.Tensor:
         target = config.layer_target(name)
@@ -180,6 +201,8 @@ def build_masks(params: Any, config: SparsityConfig,
         if step is not None:
             target = gradual_sparsity_schedule(step, target, config.ramp_start_step,
                                                config.ramp_end_step)
+        if isinstance(w, DTensor):
+            return _gathered_slices(lambda t: block_prune_mask(t, target, config.block), w)
         return block_prune_mask(w, target, config.block)
 
     return tree_map_with_path_names(one, params)

@@ -16,8 +16,13 @@ over a twentieth of the steps, as the reference's launcher.
 gradients through the int8 accumulator.
 
 ``--device`` (default ``cuda``) picks the device: without a card it exits
-unless ``--device cpu`` is given.  ``--mesh debug`` (the reference's
-sharded run) exits: it needs the sharding slice, not yet ported.
+unless ``--device cpu`` is given.  ``--mesh debug`` is the reference's
+sharded run: under ``torchrun`` with 8 ranks (``gloo`` with ``--device
+cpu``, ``nccl`` on 8 cards) it trains on ``make_debug_mesh()`` (data 2 ×
+model 4) with ``make_plan(cfg, mesh, --batch)``: the state's leaves are
+DTensors in ``sharding.partition``'s layouts, every rank makes the same
+weights and the same batch and keeps its shard, rank 0 logs and writes the
+checkpoints.  With another number of ranks it exits naming the 8 it needs.
 
 Usage, on the card:
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
@@ -25,20 +30,28 @@ Usage, on the card:
 On the CPU, at test size:
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
         --steps 4 --ckpt-dir /tmp/run1
+Sharded, on the CPU:
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --mesh debug --reduced --device cpu --steps 4 --batch 8
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ALL_ARCH_IDS
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.data.pipeline import make_batch_fn, step_generator
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models.registry import Arch, get_arch
+from repro_torch.sharding.mesh import MeshPlan, make_plan
+from repro_torch.sharding.partition import shard_params
 from repro_torch.train.loop import TrainConfig, build_train_step, train_loop
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_state import TrainState, init_train_state
@@ -46,8 +59,7 @@ from repro_torch.utils.logging import get_logger
 
 log = get_logger("launch.train")
 
-MESH_REASON = ("--mesh debug needs the sharding slice (sharding/*, launch/mesh.py), "
-               "not yet ported; run without --mesh")
+DEBUG_RANKS = 8  # make_debug_mesh(): data 2 × model 4
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -91,6 +103,7 @@ class Trainer:
     step: Callable[[TrainState, dict], tuple[TrainState, dict]]
     data: Callable[[int], dict[str, torch.Tensor]]
     checkpointer: Checkpointer | None
+    plan: MeshPlan = MeshPlan()
 
 
 def train_config(args: argparse.Namespace) -> TrainConfig:
@@ -118,12 +131,13 @@ def build_trainer(args: argparse.Namespace, arch: Arch | None = None) -> Trainer
     the latest checkpoint's, unless ``--no-resume``), the step and the data;
     ``arch`` trains another model in place of ``--arch`` (one cut in depth).
     Autograd must be free to record (not under ``torch.inference_mode``)."""
-    if args.mesh != "none":
-        raise SystemExit(MESH_REASON)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: pass --device cpu to train on the CPU")
     arch = arch or get_arch(args.arch, reduced=args.reduced)
+    plan = MeshPlan()
+    if args.mesh == "debug":
+        plan = make_plan(arch.cfg, _debug_mesh(device), args.batch)
     tc = train_config(args)
     params = arch.init_params(torch.Generator(device=device).manual_seed(args.seed), device)
     state = init_train_state(params, tc.opt, tc.sparsity)
@@ -131,35 +145,61 @@ def build_trainer(args: argparse.Namespace, arch: Arch | None = None) -> Trainer
     if ck is not None and not args.no_resume and ck.latest_step() is not None:
         state = ck.restore(state)
         log.info("resumed from step %d", int(state.step))
+    if plan.mesh is not None:  # every rank made the same state: each keeps its shard
+        state = TrainState(shard_params(state.params, plan),
+                           {k: shard_params(v, plan) for k, v in state.opt_state.items()},
+                           None if state.masks is None else shard_params(state.masks, plan),
+                           state.step)
     batch_fn = make_batch_fn(arch.cfg.vocab_size, args.seq, args.batch, args.seed, device)
 
     def data(i: int) -> dict[str, torch.Tensor]:
         b = batch_fn(i)
         if arch.input_kind == "tokens":
-            return b
-        emb = torch.randn((args.batch, args.seq, arch.cfg.d_model),
-                          generator=step_generator(7, i)).to(device, torch.bfloat16)
-        out = {"embeds": emb, "labels": b["labels"]}
-        if arch.input_kind == "embeds+mrope":
-            out["positions"] = torch.arange(args.seq, device=device).expand(args.batch, 3,
-                                                                            args.seq)
-        return out
+            out = b
+        else:
+            emb = torch.randn((args.batch, args.seq, arch.cfg.d_model),
+                              generator=step_generator(7, i)).to(device, torch.bfloat16)
+            out = {"embeds": emb, "labels": b["labels"]}
+            if arch.input_kind == "embeds+mrope":
+                out["positions"] = torch.arange(args.seq, device=device).expand(
+                    args.batch, 3, args.seq)
+        return {k: plan.shard(v, plan.dp, *([None] * (v.dim() - 1))) for k, v in out.items()}
 
-    return Trainer(arch, tc, state, build_train_step(arch, tc), data, ck)
+    return Trainer(arch, tc, state, build_train_step(arch, tc, plan=plan), data, ck, plan)
+
+
+def _debug_mesh(device: torch.device):
+    """The debug mesh over the group ``torchrun`` describes (gloo on the
+    CPU, NCCL on cards); exits naming the ranks it needs."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != DEBUG_RANKS:
+        raise SystemExit(f"--mesh debug needs {DEBUG_RANKS} ranks for its sharding mesh "
+                         f"(torchrun --nproc-per-node {DEBUG_RANKS}); this run has {world}")
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DEBUG_RANKS))
+    return make_debug_mesh(device_type=device.type)
 
 
 def main(argv: list[str] | None = None) -> TrainState:
     args = parse_args(argv)
     run = build_trainer(args)
 
+    lead = run.plan.mesh is None or dist.get_rank() == 0
+
     def on_metrics(i: int, m: dict[str, Any]) -> None:
-        if i % 10 == 0 or i == args.steps - 1:
+        if lead and (i % 10 == 0 or i == args.steps - 1):
             log.info("step %d loss %.4f gnorm %.3f lr %.2e", i, m["loss"], m["grad_norm"],
                      m["lr"])
 
     state = train_loop(run.step, run.state, run.data, args.steps, run.checkpointer,
                        args.ckpt_every, on_metrics)
-    log.info("done at step %d", int(state.step))
+    if lead:
+        log.info("done at step %d", int(state.step))
+    if run.plan.mesh is not None:
+        dist.destroy_process_group()
     return state
 
 

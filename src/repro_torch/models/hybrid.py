@@ -33,8 +33,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_trees
+from repro_torch.models.transformer import NO_PLAN, layer_trees
 from repro_torch.models.mamba2 import mamba2_apply, mamba2_dims, mamba2_init
+from repro_torch.sharding.mesh import MeshPlan
 from repro_torch.utils.remat import remat as remat_fn
 
 Params = dict[str, Any]
@@ -71,12 +72,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 def _shared_block(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                   cache: tuple | None, cache_pos: torch.Tensor | None,
-                  query_rows: int) -> torch.Tensor:
+                  query_rows: int, plan: MeshPlan = NO_PLAN) -> torch.Tensor:
+    seq = plan.tp if x.shape[1] > 1 else None
     h, _ = L.attention_apply(p["attn"], cfg, L.norm_apply(p["ln_a"], x), positions,
-                             cache=cache, cache_pos=cache_pos, causal=True,
+                             plan=plan, cache=cache, cache_pos=cache_pos, causal=True,
                              query_rows=query_rows)
-    x = x + h
-    return x + L.ffn_apply(p["ffn"], L.norm_apply(p["ln_f"], x))
+    x = plan.constrain(x + h, plan.dp, seq, None)
+    h2 = L.ffn_apply(p["ffn"], L.norm_apply(p["ln_f"], x))
+    return plan.constrain(x + h2, plan.dp, seq, None)
 
 
 def store(leaf: torch.Tensor, new: torch.Tensor, advance: torch.Tensor | None) -> None:
@@ -113,8 +116,19 @@ def forward(
     query_rows: int = 0,
     advance: torch.Tensor | None = None,
     remat: bool = False,  # training: recompute each layer in the backward
+    plan: MeshPlan | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
-    """→ (logits (B, S, V), cache), the cache updated in place."""
+    """→ (logits (B, S, V), cache), the cache updated in place.  ``plan``
+    shards as ``models.transformer``'s (the reference's sites: the residual
+    stream sequence-parallel, the logits vocab-sharded)."""
+    plan = plan or NO_PLAN
+    with plan.replicating():
+        return _forward(params, cfg, plan, tokens, embeds, positions, cache, cache_pos,
+                        block_table, decode_chunk, query_rows, advance, remat)
+
+
+def _forward(params, cfg, plan, tokens, embeds, positions, cache, cache_pos, block_table,
+             decode_chunk, query_rows, advance, remat):
     dtype = getattr(torch, cfg.compute_dtype)
     x = L.embed_apply(params["embed"], tokens, dtype) if embeds is None else embeds.to(dtype)
     b, s = x.shape[:2]
@@ -122,36 +136,41 @@ def forward(
     if positions is None:
         positions = (torch.arange(s, device=x.device).expand(b, s) if cache_pos is None
                      else cache_pos[:, None])
+    seq = plan.tp if s > 1 else None
+    x = plan.constrain(x, plan.dp, seq, None)
     every = cfg.shared_attention_every
 
     def layer(i: int, lp: Params, x: torch.Tensor) -> torch.Tensor:
         if i % every == 0:
             inv = i // every
             kv = None if cache is None else (cache["attn_k"][inv], cache["attn_v"][inv])
-            x = _shared_block(params["shared"], cfg, x, positions, kv, cache_pos, query_rows)
+            x = _shared_block(params["shared"], cfg, x, positions, kv, cache_pos, query_rows,
+                              plan)
         mstate = None if cache is None else {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
-        h, new = mamba2_apply(lp["block"], cfg, L.norm_apply(lp["ln"], x), mstate)
+        h, new = mamba2_apply(lp["block"], cfg, L.norm_apply(lp["ln"], x), mstate, plan)
         if cache is not None:
             store(cache["ssm"][i], new["ssm"], advance)
             store(cache["conv"][i], new["conv"], advance)
-        return x + h
+        return plan.constrain(x + h, plan.dp, seq, None)
 
     apply = remat_fn(layer) if remat and cache is None else layer
     for i, lp in enumerate(layer_trees(params["mamba_layers"], cfg.n_layers)):
         x = apply(i, lp, x)
     x = L.norm_apply(params["final_norm"], x)
-    return L.lm_head_apply(params["lm_head"], x), cache
+    logits = L.lm_head_apply(params["lm_head"], x)
+    return plan.constrain(logits, plan.dp, None, plan.tp), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=torch.bfloat16,
-               cache_quant_int8: bool = False) -> dict:
+               cache_quant_int8: bool = False, plan: MeshPlan | None = None) -> dict:
     """The leaves of the module docstring, zeros.  ``cache_quant_int8`` is
     ignored, as the reference's ``init_cache`` makes no scale leaves for
     this family (its int8-KV flag does nothing here)."""
     del cache_quant_int8
     dm = mamba2_dims(cfg)
     n_inv = n_shared_invocations(cfg)
-    kv = (n_inv, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = (n_inv, batch, max_len, cfg.n_kv_heads * (plan.kv_repeat if plan else 1),
+          cfg.head_dim)
     return {
         "attn_k": torch.zeros(kv, dtype=dtype, device=device),
         "attn_v": torch.zeros(kv, dtype=dtype, device=device),

@@ -29,11 +29,14 @@ Conventions:
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sonic_layers import draft_apply, serve_quant_apply
@@ -89,6 +92,82 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, lead=(), bias: bool = 
     return p
 
 
+def _rows_gathered(x: DTensor) -> DTensor:
+    """x with its middle dims (the sequence) gathered: a product's rows are
+    (B·S), sharded by the batch only, as sequence parallelism gathers the
+    sequence before a projection."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def rows(i, q):
+        if isinstance(q, (Replicate, Partial)):
+            return q
+        if type(q) is not Shard:  # a strided split a reshape left
+            return Replicate()
+        if 0 < q.dim < x.dim() - 1 or x.device_mesh.size(i) == 1:  # (1 device: free)
+            return Replicate()
+        return q
+
+    pl = tuple(rows(i, q) for i, q in enumerate(x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+class _GradInLayout(torch.autograd.Function):
+    """Identity whose backward lays the gradient out as the forward value
+    (a product's gradient then reaches its backward in the rows' layout,
+    not in a sequence-sharded one it cannot flatten)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Partial, Replicate
+
+        # a partial sum's gradient is the same on every device
+        ctx.layout = (y.device_mesh, tuple(Replicate() if isinstance(q, Partial) else q
+                                           for q in y.placements))
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, pl = ctx.layout
+        return g if tuple(g.placements) == pl else g.redistribute(mesh, pl)
+
+
+def grad_in_layout(t: torch.Tensor) -> torch.Tensor:
+    """t, its gradient laid out as t (``_GradInLayout``) if it is a DTensor."""
+    return _GradInLayout.apply(t) if isinstance(t, DTensor) else t
+
+
+def split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """t (B, S, n·dh) → (B, S, n, dh).  A DTensor whose last dim is sharded
+    over more devices than n divides is gathered on that dim first (as
+    GSPMD reshards a head split it cannot keep)."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+
+        on_last = [i for i, q in enumerate(t.placements)
+                   if isinstance(q, Shard) and q.dim == t.dim() - 1]
+        if n % math.prod(t.device_mesh.size(i) for i in on_last):
+            pl = tuple(Replicate() if i in on_last else q for i, q in enumerate(t.placements))
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], n, dh)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """t (B, S, H, Dh) → (B, S, H·Dh).  A DTensor split over Dh, or over H
+    unevenly, is gathered on those dims first (a merge could keep only an
+    even split of H)."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = t.device_mesh
+        pl = tuple(Replicate() if isinstance(q, Shard) and (
+            q.dim == 3 or type(q) is not Shard
+            or (q.dim == 2 and t.shape[2] % mesh.size(i))) else q
+            for i, q in enumerate(t.placements))
+        if pl != tuple(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(*t.shape[:2], t.shape[2] * t.shape[3])
+
+
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "qvalues" in p:  # int8 block-sparse serving weights: the projection
         # dict was rewritten by ``quantize_serve_params``; the kernels
@@ -99,12 +178,15 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
         y = draft_apply(p, x)
     else:
         w = p["kernel"].to(x.dtype)
-        x2 = x.reshape(-1, x.shape[-1])
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            y = x2 @ w  # training: one product, so dW is one fp32-accumulated sum
+        if isinstance(x, DTensor):  # sharded: one product, no row floors
+            y = grad_in_layout(_rows_gathered(x) @ w)
         else:
-            y = fixed_rows(lambda xx: xx @ w, x2)
-        y = y.reshape(*x.shape[:-1], w.shape[-1])
+            x2 = x.reshape(-1, x.shape[-1])
+            if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+                y = x2 @ w  # training: one product, so dW is one fp32-accumulated sum
+            else:
+                y = fixed_rows(lambda xx: xx @ w, x2)
+            y = y.reshape(*x.shape[:-1], w.shape[-1])
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -123,6 +205,8 @@ def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     reduction picks its threads by the number of rows)."""
 
     def mean(t: torch.Tensor) -> torch.Tensor:
+        if isinstance(t, DTensor):  # sharded: as laid out, no row floor
+            return t.mean(-1, keepdim=True)
         m = at_least_rows(lambda tt: tt.mean(-1, keepdim=True), t.reshape(-1, t.shape[-1]),
                           _row_floor(x))
         return m.reshape(*t.shape[:-1], 1)
@@ -288,6 +372,96 @@ def decode_attention(
     return out[:, :, :, :c].permute(0, 3, 1, 2, 4).reshape(b, c, h, dh)
 
 
+# Attention as one operator, for meshed runs.  Under a mesh each device
+# attends with its own block of heads (or of query rows), and that math is
+# the operator ``repro_torch::flash_attention``: its implementation is
+# ``flash_attention`` itself, and its backward recomputes the forward and
+# differentiates it (the graph plain autograd would run).  Being one
+# operator, it has a shape function, so a run on fake tensors (the dry run)
+# steps over the chunk loops in one call, and a FLOP formula, so
+# ``FlopCounterMode`` counts what the loops execute.  Its transient score
+# blocks are not seen by a memory tracker.
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_positions: torch.Tensor, kv_positions: torch.Tensor, causal: bool,
+                       q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    return flash_attention(q, k, v, q_positions, kv_positions, causal, q_chunk, kv_chunk)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, q_positions, kv_positions, causal, q_chunk, kv_chunk):
+    return q.new_empty(q.shape, dtype=v.dtype)
+
+
+# The dispatcher's state outside any operator: an operator's backward runs
+# its recomputation under it, so autograd records there (an operator's
+# implementation is otherwise entered below the autograd keys).
+_TOP_LEVEL_KEYS = (torch._C._dispatch_tls_local_include_set(),
+                   torch._C._dispatch_tls_local_exclude_set())
+
+
+def recompute_grad(fn, inputs, grads, *args):
+    """The vector-Jacobian product of ``fn(*inputs, *args)`` with ``grads``,
+    by running fn again under autograd (an operator's backward)."""
+    with torch._C._ForceDispatchKeyGuard(*_TOP_LEVEL_KEYS), torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*leaves, *args)
+        return torch.autograd.grad(out, leaves, grads, allow_unused=True,
+                                   materialize_grads=True)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def _flash_attention_backward(grad: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, q_positions: torch.Tensor,
+                              kv_positions: torch.Tensor, causal: bool, q_chunk: int,
+                              kv_chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dq, dk, dv = recompute_grad(flash_attention, (q, k, v), grad, q_positions, kv_positions,
+                                causal, q_chunk, kv_chunk)
+    return dq, dk, dv
+
+
+@_flash_attention_backward.register_fake
+def _(grad, q, k, v, q_positions, kv_positions, causal, q_chunk, kv_chunk):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:5])
+    ctx.args = inputs[5:]
+
+
+def _flash_backward(ctx, grad):
+    dq, dk, dv = _flash_attention_backward(grad, *ctx.saved_tensors, *ctx.args)
+    return dq, dk, dv, None, None, None, None, None
+
+
+flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def attention_flops(q_shape, k_shape, q_chunk: int, kv_chunk: int) -> int:
+    """The products ``flash_attention`` executes: scores and p·v over every
+    (padded) query chunk × key chunk."""
+    b, sq, h, dh = q_shape
+    skv = k_shape[1]
+    kvc = min(kv_chunk, skv)
+    return 4 * b * h * (-(-sq // q_chunk) * q_chunk) * (-(-skv // kvc) * kvc) * dh
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, qp_shape, kvp_shape, causal, q_chunk, kv_chunk, *args,
+      **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, q_chunk, kv_chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _(grad_shape, q_shape, k_shape, v_shape, qp_shape, kvp_shape, causal, q_chunk, kv_chunk,
+      *args, **kwargs) -> int:
+    # the recomputed forward (2 products a block) and the four backward ones
+    return 3 * attention_flops(q_shape, k_shape, q_chunk, kv_chunk)
+
+
 def _write_rows(pairs, pos: torch.Tensor) -> None:
     """cache[b, pos[b] + j] = new[b, j] for each (cache, new) of ``pairs``
     (all (B, S_max, …) against (B, S, …)), in place: the reference's
@@ -407,12 +581,93 @@ def _kv_positions(b: int, n: int, device) -> torch.Tensor:
     return torch.arange(n, device=device).expand(b, n)
 
 
+def kv_repeat_factor(cfg: ModelConfig, tp: int) -> int:
+    """Replication of KV heads so the head axis shards over ``tp`` devices
+    (MaxText-style kv replication).  1 when no replication is needed."""
+    kh = cfg.n_kv_heads
+    r = 1
+    while (kh * r) % tp and (kh * r) < cfg.n_heads:
+        r += 1
+    return r if (kh * r) % tp == 0 or (kh * r) == cfg.n_heads else 1
+
+
+def _repeat_heads(t: torch.Tensor, r: int) -> torch.Tensor:
+    """t (B, S, KH, Dh) with each head repeated r times in place
+    (``jnp.repeat`` along the head axis)."""
+    b, s, kh, dh = t.shape
+    return t[:, :, :, None, :].expand(b, s, kh, r, dh).reshape(b, s, kh * r, dh)
+
+
+def _cached_attention(flash, q, k, v, k_att, v_att, pos2d, cache_pos, *, decode: bool,
+                      causal: bool, quant: bool, query_rows: int) -> torch.Tensor:
+    """Attention over a cache that has just been written (see
+    ``attention_apply``); ``flash`` is ``flash_attention`` or its operator,
+    ``decode`` whether the rows attend decode-style (a decode step or a
+    verify window)."""
+    b = q.shape[0]
+    s_max = k_att.shape[1]
+    if decode:
+        return decode_attention(q, k_att, v_att, cache_pos, query_rows)
+    kv_pos = _kv_positions(b, s_max, q.device)
+    if cache_pos is not None or quant:  # chunk-resume, or any int8-KV prefill
+        return flash(q, k_att, v_att, pos2d, kv_pos, causal, PREFILL_QUERY_CHUNK, 1024)
+    # whole-prompt prefill: the fresh (exact) k/v over the cache length
+    return flash(q, _pad_axis1(k, s_max), _pad_axis1(v, s_max), pos2d, kv_pos, causal,
+                 PREFILL_QUERY_CHUNK, 1024)
+
+
+def _as_dtensor(plan, t: torch.Tensor) -> DTensor:
+    return t if isinstance(t, DTensor) else plan.shard(t)
+
+
+def _dim_offset(t: DTensor, dim: int) -> int:
+    """Where this rank's block of ``t`` starts along ``dim`` (DTensor's
+    nested split, mesh dims in order), from the mesh coordinate alone."""
+    from torch.distributed.tensor import Shard
+
+    size, off = t.shape[dim], 0
+    coord = t.device_mesh.get_coordinate()
+    for i, q in enumerate(t.placements):
+        if isinstance(q, Shard) and q.dim == dim:
+            chunk = -(-size // t.device_mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            off, size = off + start, max(0, min(chunk, size - start))
+    return off
+
+
+def _write_rows_meshed(plan, pairs, pos: torch.Tensor) -> None:
+    """``_write_rows`` into DTensor caches: each device writes the rows of
+    its own block of the cache (the sequence dim too, where it is sharded),
+    in place, with the reference's clamp of the start."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    for cache, new in pairs:
+        mesh, pl = cache.device_mesh, tuple(cache.placements)
+        new_pl = tuple(Replicate() if isinstance(q, Shard) and q.dim == 1 else q for q in pl)
+        pos_pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in pl)
+        n = _as_dtensor(plan, new).redistribute(mesh, new_pl).to_local()
+        p = _as_dtensor(plan, pos).redistribute(mesh, pos_pl).to_local()
+        c = cache.to_local()
+        if not any(isinstance(q, Shard) and q.dim == 1 for q in pl):
+            _write_rows(((c, n),), p)
+            continue
+        s = n.shape[1]
+        start = torch.clamp(p.long(), 0, cache.shape[1] - s)
+        rel = (torch.arange(c.shape[1], device=c.device)[None, :] + _dim_offset(cache, 1)
+               - start[:, None])  # (B_loc, S_loc): the new row each place takes
+        keep = (rel >= 0) & (rel < s)
+        idx = torch.clamp(rel, 0, s - 1).reshape(*rel.shape, *([1] * (c.dim() - 2)))
+        src = torch.gather(n.to(c.dtype), 1, idx.expand(*rel.shape, *c.shape[2:]))
+        c.copy_(torch.where(keep.reshape(idx.shape), src, c))
+
+
 def attention_apply(
     p: Params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
     positions: torch.Tensor,  # (B, S) or (B, 3, S) for mrope
     *,
+    plan=None,  # MeshPlan | None
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # int8 cache
     cache_pos: torch.Tensor | None = None,  # (B,)
@@ -449,23 +704,38 @@ def attention_apply(
     M-RoPE positions (B, 3, S) rotate q and k by their sections; the flash
     paths mask by the temporal row, ``positions[:, 0]``, as the reference.
     ``causal=False`` (an encoder) drops the causal mask of the flash paths.
-    The reference's mesh constraints are not ported.
+    Sharding (when ``plan`` has a mesh and x is a DTensor), as the
+    reference: KV heads are repeated ``plan.kv_repeat``× so the head axis
+    divides TP; q/k/v are constrained head-sharded (``heads``), query rows
+    sequence-sharded with K/V replicated over tp (``seq``, S > 1) or
+    head_dim-sharded (``head_dim``).  In the first two modes every device
+    attends with its own heads or query rows (``plan.local`` over the
+    ``repro_torch::flash_attention`` operator); a decode step in ``seq``
+    mode (its cache sequence-sharded) and ``head_dim`` mode run as DTensor
+    ops.  The cache is written where each device holds it and constrained
+    to ``plan.cache_spec()``.  The paged pool has no meshed layout.
     """
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense_apply(p["wq"], x).reshape(b, s, h, dh)
-    k = dense_apply(p["wk"], x).reshape(b, s, kh, dh)
-    v = dense_apply(p["wv"], x).reshape(b, s, kh, dh)
+    q = split_heads(dense_apply(p["wq"], x), h, dh)
+    k = split_heads(dense_apply(p["wk"], x), kh, dh)
+    v = split_heads(dense_apply(p["wv"], x), kh, dh)
     if cfg.pos_enc in ("rope", "mrope"):
         ang = rope_angles(cfg, positions)
         q = apply_rope(q, ang)
         k = apply_rope(k, ang)
     pos2d = positions if positions.dim() == 2 else positions[:, 0, :]
 
+    meshed = plan is not None and plan.mesh is not None and isinstance(x, DTensor)
+    if meshed:
+        return _attention_meshed(p, plan, q, k, v, pos2d, cache=cache,
+                                 cache_scales=cache_scales, cache_pos=cache_pos,
+                                 block_table=block_table, causal=causal,
+                                 decode_chunk=decode_chunk, query_rows=query_rows)
     if cache is None:  # training and the encoder: marked for the profiler's split
         with record_function("attention"):
             out = flash_attention(q, k, v, pos2d, pos2d, causal=causal, q_chunk=min(512, s))
-        return dense_apply(p["wo"], out.reshape(b, s, h * dh)), None
+        return dense_apply(p["wo"], merge_heads(out)), None
     if cache_pos is None and (s == 1 or block_table is not None):
         raise ValueError("a decode step (S == 1) and a paged forward need cache_pos")
     quant = cache_scales is not None
@@ -497,18 +767,113 @@ def attention_apply(
         v_att = dequantize_kv(read(v_c), read(vs_c), q.dtype)
     else:
         k_att, v_att = read(k_c), read(v_c)
-    s_max = k_att.shape[1]
-    if s == 1 or (decode_chunk and cache_pos is not None):
-        out = decode_attention(q, k_att, v_att, cache_pos, query_rows)
-    elif cache_pos is not None or quant:  # chunk-resume, or any int8-KV prefill
-        out = flash_attention(q, k_att, v_att, pos2d, _kv_positions(b, s_max, x.device),
-                              causal=causal, q_chunk=PREFILL_QUERY_CHUNK)
-    else:  # whole-prompt prefill: the fresh (exact) k/v over the cache length
-        out = flash_attention(q, _pad_axis1(k, s_max), _pad_axis1(v, s_max), pos2d,
-                              _kv_positions(b, s_max, x.device),
-                              causal=causal, q_chunk=PREFILL_QUERY_CHUNK)
+    out = _cached_attention(flash_attention, q, k, v, k_att, v_att, pos2d, cache_pos,
+                            decode=s == 1 or (decode_chunk and cache_pos is not None),
+                            causal=causal, quant=quant, query_rows=query_rows)
     new_cache = (k_c, v_c, ks_c, vs_c) if quant else (k_c, v_c)
-    return dense_apply(p["wo"], out.reshape(b, s, h * dh)), new_cache
+    return dense_apply(p["wo"], merge_heads(out)), new_cache
+
+
+def _attention_meshed(p, plan, q, k, v, pos2d, *, cache, cache_scales, cache_pos, block_table,
+                      causal, decode_chunk, query_rows):
+    """``attention_apply`` on DTensors (see its docstring)."""
+    b, s, h, dh = q.shape
+    if plan.kv_repeat > 1:  # TP-friendly KV head replication
+        k, v = _repeat_heads(k, plan.kv_repeat), _repeat_heads(v, plan.kv_repeat)
+    dp, tp = plan.dp, plan.tp
+    local = plan.attn_shard == "heads" or (plan.attn_shard == "seq" and s > 1)
+    if plan.attn_shard == "heads":
+        q_spec = kv_spec = (dp, None, tp, None)
+        qpos_spec = (dp, None)
+    elif plan.attn_shard == "seq" and s > 1:
+        # sequence-parallel attention: queries keep their S-shard, K/V
+        # replicate over tp; each shard attends its query slice over full K/V
+        q_spec, kv_spec, qpos_spec = (dp, tp, None, None), (dp, None, None, None), (dp, tp)
+    elif plan.attn_shard == "head_dim":
+        q_spec = kv_spec = (dp, None, None, tp)
+        qpos_spec = (dp, None)
+    else:
+        q_spec = kv_spec = qpos_spec = None
+    if q_spec is not None:
+        q, k, v = plan.constrain(q, *q_spec), plan.constrain(k, *kv_spec), plan.constrain(
+            v, *kv_spec)
+
+    if cache is None:
+        with record_function("attention"):
+            if local:  # this device's heads / query rows, one operator
+                out = plan.local(flash_attention_op, q_spec, q, k, v,
+                                 plan.shard(pos2d, *qpos_spec), plan.shard(pos2d, dp, None),
+                                 causal, min(512, s), 1024)
+            else:
+                out = flash_attention(q, k, v, pos2d, pos2d, causal=causal, q_chunk=min(512, s))
+        return dense_apply(p["wo"], merge_heads(out)), None
+    if block_table is not None:
+        raise NotImplementedError("the paged KV pool has no meshed layout")
+    if cache_pos is None and s == 1:
+        raise ValueError("a decode step (S == 1) needs cache_pos")
+    quant = cache_scales is not None
+    k_c, v_c = cache
+    pairs = ((k_c, k), (v_c, v))
+    if quant:
+        ks_c, vs_c = cache_scales
+        (k_w, ks_new), (v_w, vs_new) = quantize_kv(k), quantize_kv(v)
+        pairs = ((k_c, k_w), (v_c, v_w), (ks_c, ks_new), (vs_c, vs_new))
+    write_pos = (cache_pos if cache_pos is not None
+                 else torch.zeros((b,), dtype=torch.long, device=q.device))
+    _write_rows_meshed(plan, pairs, write_pos)
+    cspec = plan.cache_spec()
+    k_c, v_c = plan.constrain(k_c, *cspec), plan.constrain(v_c, *cspec)
+    if quant:
+        ks_c, vs_c = plan.constrain(ks_c, *cspec[:3]), plan.constrain(vs_c, *cspec[:3])
+        k_att, v_att = dequantize_kv(k_c, ks_c, q.dtype), dequantize_kv(v_c, vs_c, q.dtype)
+    else:
+        k_att, v_att = k_c, v_c
+    kw = dict(decode=s == 1 or (decode_chunk and cache_pos is not None), causal=causal,
+              quant=quant, query_rows=query_rows)
+    if local:
+        k_att, v_att = plan.constrain(k_att, *kv_spec), plan.constrain(v_att, *kv_spec)
+        cp = None if cache_pos is None else plan.shard(cache_pos, dp)
+        out = plan.local(
+            lambda q_, k_, v_, ka, va, pos_, cp_: _cached_attention(
+                flash_attention_op, q_, k_, v_, ka, va, pos_, cp_, **kw),
+            q_spec, q, k, v, k_att, v_att, plan.shard(pos2d, *qpos_spec), cp)
+    elif plan.attn_shard == "seq" and (s == 1 or decode_chunk):
+        # flash-decode: each device attends over its block of the
+        # sequence-sharded cache, the partial softmaxes combined over tp
+        q = plan.constrain(q, dp, None, None, None)
+        off, group = _dim_offset(k_att, 1), plan.mesh.get_group(plan.tp_axis)
+        out = plan.local(
+            lambda q_, ka, va, cp_: _decode_over_shards(q_, ka, va, cp_, off, group, query_rows),
+            (dp, None, None, None), q, k_att, v_att, plan.shard(cache_pos, dp))
+    else:
+        out = _cached_attention(flash_attention, q, k, v, k_att, v_att, pos2d, cache_pos, **kw)
+    new_cache = (k_c, v_c, ks_c, vs_c) if quant else (k_c, v_c)
+    return dense_apply(p["wo"], merge_heads(out)), new_cache
+
+
+def _decode_over_shards(q, k, v, pos, off: int, group, rows: int) -> torch.Tensor:
+    """``decode_attention`` over one device's block of the cache (positions
+    off … off + S_loc − 1), its softmax's max, sum and p·v combined over
+    ``group`` (flash-decode).  The same math as ``decode_attention`` up to
+    the order of the sums."""
+    from torch.distributed import _functional_collectives as fc
+
+    b, c, h, dh = q.shape
+    kh = k.shape[2]
+    cp = max(c, rows or DECODE_QUERY_ROWS.get(q.device.type, 1))
+    qg = _pad_axis1(q, cp).reshape(b, cp, kh, h // kh, dh)
+    s = _gqa_scores(qg, k, dh**-0.5)  # (B,KH,G,Cp,S_loc) fp32
+    idx = off + torch.arange(k.shape[1], device=q.device)
+    qpos = pos[:, None] + torch.arange(cp, dtype=pos.dtype, device=q.device)[None, :]
+    s = torch.where((idx[None, None, :] <= qpos[:, :, None])[:, None, None], s, -1e30)
+    m = (s.amax(-1, keepdim=True) if s.shape[-1]  # (an uneven split may leave none)
+         else s.new_full((*s.shape[:-1], 1), -1e30))
+    m = fc.all_reduce(m, "max", group)
+    e = torch.exp(s - m)
+    denom = fc.all_reduce(e.sum(-1, keepdim=True), "sum", group)
+    num = fc.all_reduce(torch.einsum("bkgqs,bskd->bkgqd", e, v.float()), "sum", group)
+    out = (num / denom).to(v.dtype)
+    return out[:, :, :, :c].permute(0, 3, 1, 2, 4).reshape(b, c, h, dh)
 
 
 # ----------------------------------------------------------------- FFN
@@ -552,6 +917,8 @@ def embed_init(gen, cfg: ModelConfig, device) -> Params:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    if isinstance(tokens, DTensor):  # DTensor's embedding rule (a row gather)
+        return F.embedding(tokens, p["embedding"]).to(dtype)
     return p["embedding"][tokens].to(dtype)
 
 

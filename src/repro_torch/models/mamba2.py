@@ -14,6 +14,12 @@ The decode step's contraction over N is an fp32 multiply and a sum over a
 fixed axis, not a batched product: a batched GEMM's kernel may follow the
 batch (b·h), and a row of a decode step of B slots must keep the bits it
 has at B = 1.
+
+Under a mesh (``plan`` with a mesh, the input a DTensor) the projections
+are DTensor products and everything between them (the conv, the scan, the
+gate and norm) runs on each device's own batch rows (``plan.local``), the
+in_proj output gathered over the model axis first: its z / x / B / C / dt
+columns do not split into whole heads per device.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, _normal, dense_apply, norm_apply
@@ -161,15 +168,47 @@ def mamba2_apply(
     cfg: ModelConfig,
     xin: torch.Tensor,  # (B, S, d_model)
     state: dict[str, torch.Tensor] | None = None,
+    plan=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Full Mamba2 block (no outer norm / residual) → (out, new_state).
 
     state = {"conv": (B, W-1, conv_dim), "ssm": (B, H, N, P)}; None starts
     from zeros.  The new state is returned as new tensors, as the
     reference returns it (the model writes it into its cache)."""
-    dm = mamba2_dims(cfg)
-    b, s, _ = xin.shape
     proj = dense_apply(p["in_proj"], xin)
+    core = {k: p[k] for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D")}
+    core["out_norm"] = p["out_norm"]["scale"]
+    if plan is not None and plan.mesh is not None and isinstance(proj, DTensor):
+        dp = plan.dp
+        proj = plan.constrain(proj, dp, None, None)
+        names = sorted(core)
+        tensors = [plan.shard(core[k], *([None] * core[k].dim())) for k in names]
+        conv = ssm = None
+        if state is not None:
+            conv = plan.shard(state["conv"], dp, None, None)
+            ssm = plan.shard(state["ssm"], dp, None, None, None)
+
+        def run(pr, cs, ss, *ts):
+            st = None if cs is None else {"conv": cs, "ssm": ss}
+            y, new = _mamba2_core(dict(zip(names, ts)), cfg, pr, st)
+            return y, new["conv"], new["ssm"]
+
+        y, new_conv, new_ssm = plan.local(
+            run, [(dp, None, None), (dp, None, None), (dp, None, None, None)],
+            proj, conv, ssm, *tensors)
+        new = {"conv": new_conv, "ssm": new_ssm}
+    else:
+        y, new = _mamba2_core(core, cfg, proj, state)
+    return dense_apply(p["out_proj"], y), new
+
+
+def _mamba2_core(p: Params, cfg: ModelConfig, proj: torch.Tensor,
+                 state: dict[str, torch.Tensor] | None):
+    """The block between its projections: proj (B, S, proj_dim) → (y (B, S,
+    d_inner) gated and normed, new state); ``p["out_norm"]`` is the norm's
+    scale."""
+    dm = mamba2_dims(cfg)
+    b, s, _ = proj.shape
     z, xbc, dt_raw = torch.split(proj, [dm["d_in"], dm["conv_dim"], dm["h"]], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                  state["conv"] if state else None)
@@ -189,8 +228,8 @@ def mamba2_apply(
 
     y = y + x * p["D"][:, None].to(x.dtype)
     y = y.reshape(b, s, dm["d_in"])
-    y = norm_apply(p["out_norm"], y * F.silu(z))
-    return dense_apply(p["out_proj"], y), {"conv": new_conv, "ssm": h_final}
+    y = norm_apply({"scale": p["out_norm"]}, y * F.silu(z))
+    return y, {"conv": new_conv, "ssm": h_final}
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, device, dtype=torch.float32) -> dict:

@@ -20,9 +20,22 @@ the reference scatter-adds the slots (``segment_sum``) in the same
 expert-major order: no atomics, so two runs give the same bits.
 
 ``moe_load_balance_loss`` is the reference's auxiliary loss on the same
-selection.  Not ported (they need a mesh): ``expert_split_factor``,
-``_virtualize``, ``_split_weights`` and the mesh constraints of
-``moe_apply``.
+selection.
+
+Under a mesh (``plan`` with a mesh, x a DTensor) ``moe_apply`` takes the
+reference's two regimes:
+  * EP (n_experts % tp == 0, e.g. moonshot 64e/16): experts sharded over
+    the model axis; the dp-major → model-major transpose of the slot buffer
+    is the expert all-to-all.
+  * TP-experts (otherwise, e.g. grok-1 8e/16): the expert weights keep
+    their (E, d, f) layout with d_ff tp-sharded (``partition``'s switch),
+    tokens replicate over model, partial outputs sum.
+Routing and dispatch run per batch row on each device's own rows, and the
+combine on each device's own experts (``plan.local``, the reference's
+vmapped per-row sort); the combine's per-expert partial sums meet in one
+reduction over the model axis, as the reference's ``segment_sum`` does.
+``expert_split_factor``, ``_virtualize`` and ``_split_weights`` are the
+reference's exact d_ff split of an expert into virtual experts.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, _normal, _row_floor, gelu
@@ -45,6 +59,17 @@ def _normal_stack(gen, shape, dtype, scale: float, device) -> torch.Tensor:
         for i in range(shape[0]):
             out[i] = _normal(gen, shape[1:], dtype, scale, device)
     return out
+
+
+def expert_split_factor(cfg: ModelConfig, tp: int) -> int:
+    e = cfg.n_experts
+    if e % tp == 0:
+        return 1
+    # smallest split s.t. E·split % tp == 0 and d_ff % split == 0
+    for s in range(2, tp + 1):
+        if (e * s) % tp == 0 and cfg.d_ff % s == 0:
+            return s
+    return 1
 
 
 def moe_init(gen, cfg: ModelConfig, device, lead=()) -> Params:
@@ -97,6 +122,32 @@ def _router(p: Params, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor,
     gates = torch.gather(probs, -1, experts)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     return gates, experts
+
+
+def _virtualize(gates: torch.Tensor, experts: torch.Tensor,
+                split: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expand (…, k) real routing to (…, k·split) virtual routing."""
+    if split == 1:
+        return gates, experts
+    v_experts = experts[..., None] * split + torch.arange(split, device=experts.device)
+    v_gates = gates[..., None].expand(v_experts.shape)
+    return (v_gates.reshape(*gates.shape[:-1], -1),
+            v_experts.reshape(*experts.shape[:-1], -1).to(torch.int32))
+
+
+def _split_weights(p: Params, split: int) -> Params:
+    """(E, d, f) → (E·split, d, f/split); exact SwiGLU/MLP decomposition."""
+    if split == 1:
+        return p
+    out = {"router": p["router"]}
+    for name in ("wi", "wg"):
+        if name in p:
+            e, d, f = p[name].shape
+            out[name] = (p[name].reshape(e, d, split, f // split).permute(0, 2, 1, 3)
+                         .reshape(e * split, d, f // split))
+    e, f, d = p["wo"].shape
+    out["wo"] = p["wo"].reshape(e, split, f // split, d).reshape(e * split, f // split, d)
+    return out
 
 
 def _expert_ffn(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -158,9 +209,11 @@ def _buffers(experts, gates, slot, kept, e: int, capacity: int):
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              capacity_factor: float | None = None) -> torch.Tensor:
-    """Sparse MoE forward, x (B, S, d) → (B, S, d): the reference's on one
-    device (its expert-parallel layout without a mesh)."""
+              capacity_factor: float | None = None, plan=None) -> torch.Tensor:
+    """Sparse MoE forward, x (B, S, d) → (B, S, d): the reference's, on one
+    device or (``plan``) sharded."""
+    if plan is not None and plan.mesh is not None and isinstance(x, DTensor):
+        return _moe_apply_meshed(p, cfg, x, plan, capacity_factor)
     b, s, d = x.shape
     e = cfg.n_experts
     cap = capacity(cfg, s, capacity_factor)
@@ -187,6 +240,73 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     for j in range(cfg.experts_per_token):
         out = torch.where(kept[..., j, None], out + picked[:, :, j], out)
     return out
+
+
+def _route_rows(cfg: ModelConfig, e: int, cap: int, x: torch.Tensor, router: torch.Tensor):
+    """Routing and dispatch of some batch rows: the slot buffer (B, E, C, d)
+    of their tokens, its gates, and each assignment's expert, slot and
+    keep flag (``moe_apply``'s first half)."""
+    b, _, d = x.shape
+    gates, experts = _router({"router": {"kernel": router}}, cfg, x)
+    slot, kept = _slots(experts, e, cap)
+    idx_buf, gate_buf = _buffers(experts, gates, slot, kept, e, cap)
+    idx_safe = torch.clamp(idx_buf, min=0).reshape(b, e * cap)
+    buf = torch.gather(x, 1, idx_safe[..., None].expand(b, e * cap, d)).reshape(b, e, cap, d)
+    buf = torch.where((idx_buf >= 0)[..., None], buf, torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+    return buf, gate_buf, experts, slot, kept
+
+
+def _combine_rows(k: int, cap: int, e0: int, out_buf, gate_buf, experts, slot, kept):
+    """Each token's kept slot outputs among experts e0 … e0 + E_local − 1
+    (the device's own), summed in ascending expert order."""
+    b, el, _, d = out_buf.shape
+    s = experts.shape[1]
+    weighted = (out_buf * gate_buf[..., None].to(out_buf.dtype)).reshape(b, el * cap, d)
+    order = torch.argsort(experts, dim=-1)
+    experts, slot, kept = (torch.gather(a, -1, order) for a in (experts, slot, kept))
+    mine = kept & (experts >= e0) & (experts < e0 + el)
+    where = (torch.clamp(experts - e0, 0, el - 1) * cap + torch.clamp(slot, max=cap - 1))
+    picked = torch.gather(weighted, 1, where.reshape(b, -1)[..., None].expand(-1, -1, d))
+    picked = picked.reshape(b, s, k, d)
+    out = torch.zeros((b, s, d), dtype=out_buf.dtype, device=out_buf.device)
+    for j in range(k):
+        out = torch.where(mine[..., j, None], out + picked[:, :, j], out)
+    return out
+
+
+def _moe_apply_meshed(p: Params, cfg: ModelConfig, x: torch.Tensor, plan,
+                      capacity_factor: float | None) -> torch.Tensor:
+    """``moe_apply`` on DTensors (see the module doc)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    ep = e % plan.tp_size == 0
+    cap = capacity(cfg, s, capacity_factor)
+    dp = plan.dp
+    row3 = (dp, None, None)
+    # tokens replicated over the model axis inside the MoE block (AG from
+    # SP) BEFORE the router contraction: every shard routes over the same
+    # full d axis
+    x = plan.constrain(x, *row3)
+    router = plan.shard(p["router"]["kernel"], None, None)
+    buf, gate_buf, experts, slot, kept = plan.local(
+        lambda xl, wl: _route_rows(cfg, e, cap, xl, wl),
+        [(dp, None, None, None), row3, row3, row3, row3], x, router)
+    e_spec = plan.tp if ep else None
+    buf = plan.constrain(buf, dp, e_spec, None, None)
+    # dp-major → model-major on experts: the expert all-to-all (EP only)
+    buf = plan.local(lambda t: t.transpose(0, 1).reshape(t.shape[1], -1, d),
+                     (e_spec, dp, None), buf)
+    out_buf = _expert_ffn(p, cfg, buf)  # (E, B·C, d); TP: partial over model
+    out_buf = plan.constrain(out_buf, e_spec, dp, None)
+    # back to dp-major token dim, experts KEPT tp-sharded under EP
+    out_buf = plan.local(lambda t: t.reshape(t.shape[0], -1, cap, d).transpose(0, 1),
+                         (dp, e_spec, None, None), out_buf)
+    gate_buf = plan.constrain(gate_buf, dp, e_spec, None)
+    e0 = plan.mesh.get_local_rank(plan.tp_axis) * (e // plan.tp_size) if ep else 0
+    out = plan.local(lambda *a: _combine_rows(k, cap, e0, *a), row3, out_buf, gate_buf,
+                     experts, slot, kept, partial=plan.tp_axis if ep else None)
+    return plan.constrain(out, dp, plan.tp if s > 1 else None, None)
 
 
 def moe_apply_dense(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,12 @@ states' leading axis is the layer, the hybrid's attention leaves' the
 shared block's invocation); a paged pool's leaves are (n_layers, n_blocks,
 block_len, …) with the block axis on ``CACHE_BLOCK_AXIS``.  The slot and
 block helpers below write in place and return the cache.
+
+Sharding (the reference's ``input_specs`` and ``cache_shardings``): every
+model input of an (arch × shape) cell has a ``TensorSpec`` (shape, dtype
+and, with a mesh, its ``NamedSharding``), the dry run's abstract inputs;
+``Arch.init_cache(..., plan=)`` lays a cache out on the plan's mesh by the
+same rules, and ``Arch.forward(..., plan=)`` shards the forward.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, get_config, reduced_config
 from repro_torch.models import hybrid, rwkv_model, transformer
+from repro_torch.sharding.mesh import MeshPlan, NamedSharding
+from repro_torch.utils.tree import tree_map_with_path_names
 
 META = torch.device("meta")
 
@@ -70,16 +78,46 @@ class Arch:
                     cfg: ModelConfig | None = None):
         return self.module.init_params(cfg or self.cfg, gen, device)
 
-    def forward(self, params, cfg: ModelConfig | None = None, **kw):
-        return self.module.forward(params, cfg or self.cfg, **kw)
+    def abstract_params(self, cfg: ModelConfig | None = None):
+        """The param tree on the ``meta`` device: the reference's leaf names,
+        shapes and dtypes, no data."""
+        return self.init_params(None, META, cfg)
+
+    def forward(self, params, cfg: ModelConfig | None = None, plan: MeshPlan | None = None,
+                **kw):
+        return self.module.forward(params, cfg or self.cfg, plan=plan, **kw)
 
     def init_cache(self, batch: int, max_len: int, device, cfg: ModelConfig | None = None,
-                   cache_quant_int8: bool = False):
+                   cache_quant_int8: bool = False, plan: MeshPlan | None = None,
+                   dtype: torch.dtype | None = None):
         """The family's serving cache; ``cache_quant_int8`` is the
         reference's ``MeshPlan.cache_quant_int8`` (int8 k / v and fp32
-        scales; the recurrent families ignore it, as the reference's do)."""
-        return self.module.init_cache(cfg or self.cfg, batch, max_len, device,
-                                      cache_quant_int8=cache_quant_int8)
+        scales; the recurrent families ignore it, as the reference's do).
+        With a meshed ``plan`` every leaf is a DTensor of zeros laid out by
+        ``cache_shardings`` (each rank allocates its shard only).  ``dtype``
+        replaces the family's default type of the KV / shift leaves."""
+        cfg = cfg or self.cfg
+        if plan is None or plan.mesh is None:
+            kw = {} if dtype is None else {"dtype": dtype}
+            return self.module.init_cache(cfg, batch, max_len, device,
+                                          cache_quant_int8=cache_quant_int8, plan=plan, **kw)
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.distributed.tensor import zeros
+
+        with unset_fake_temporarily():  # shapes only: no device's tensors
+            abstract = self.abstract_cache(batch, max_len, plan, cfg, cache_quant_int8, dtype)
+        specs = cache_shardings(self, abstract, plan, cfg)
+        return tree_map_with_path_names(
+            lambda _, t: zeros(t.shape, dtype=t.dtype, device_mesh=plan.mesh,
+                               placements=t.sharding.placements), specs)
+
+    def abstract_cache(self, batch: int, max_len: int, plan: MeshPlan | None = None,
+                       cfg: ModelConfig | None = None, cache_quant_int8: bool = False,
+                       dtype: torch.dtype | None = None):
+        """The cache's leaves on the ``meta`` device."""
+        kw = {} if dtype is None else {"dtype": dtype}
+        return self.module.init_cache(cfg or self.cfg, batch, max_len, META,
+                                      cache_quant_int8=cache_quant_int8, plan=plan, **kw)
 
     # -- chunked prefill, speculative decoding, paged KV (serving) ----------
     @property
@@ -347,3 +385,118 @@ def check_paged_cache_contract(arch: Arch, n_slots: int = 2, block_len: int = 4,
                           block_table=torch.zeros((n_slots, max_blocks), dtype=torch.int32,
                                                   device=META))
     _assert_same(arch, before, _specs(out), "paged decode")
+
+
+# ------------------------------------------------------------ sharded inputs
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """An abstract tensor: shape, dtype and, with a mesh, its layout (the
+    reference's ``ShapeDtypeStruct`` with a sharding)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding | None = None
+
+    def empty(self, device="cpu") -> torch.Tensor:
+        """An uninitialised tensor of this spec: a DTensor of each rank's
+        shard in its layout, or a plain tensor on ``device`` without one.
+        Under ``FakeTensorMode`` it holds no data."""
+        if self.sharding is None:
+            return torch.empty(self.shape, dtype=self.dtype, device=device)
+        from torch.distributed.tensor import empty
+
+        return empty(self.shape, dtype=self.dtype, device_mesh=self.sharding.mesh,
+                     placements=self.sharding.placements)
+
+
+def input_specs(
+    arch: Arch,
+    shape: ShapeSpec,
+    plan: MeshPlan,
+    cfg: ModelConfig | None = None,
+) -> dict:
+    """Abstract model inputs (``TensorSpec``) for one (arch × shape) cell.
+
+    train   → tokens/embeds (+positions) + labels
+    prefill → tokens/embeds (+positions)
+    decode  → token (B,1) + cache (length = shape.seq_len) + pos (B,)
+    """
+    cfg = cfg or arch.cfg
+    b, s = shape.global_batch, shape.seq_len
+    bf16 = torch.bfloat16
+
+    def sds(shp, dtype, *spec):
+        return TensorSpec(tuple(shp), dtype, plan.ns(*spec))
+
+    def token_inputs(seq: int) -> dict:
+        if arch.input_kind == "tokens":
+            return {"tokens": sds((b, seq), torch.int32, plan.dp, None)}
+        out = {"embeds": sds((b, seq, cfg.d_model), bf16, plan.dp, None, None)}
+        if arch.input_kind == "embeds+mrope":
+            out["positions"] = sds((b, 3, seq), torch.int32, plan.dp, None, None)
+        return out
+
+    if shape.kind == "train":
+        specs = token_inputs(s)
+        specs["labels"] = sds((b, s), torch.int32, plan.dp, None)
+        return specs
+
+    if shape.kind == "prefill":
+        return token_inputs(s)
+
+    # decode: one new token, cache of length s
+    specs = {}
+    if arch.input_kind == "tokens":
+        specs["token"] = sds((b, 1), torch.int32, plan.dp, None)
+    else:
+        specs["token"] = sds((b, 1, cfg.d_model), bf16, plan.dp, None, None)
+        if arch.input_kind == "embeds+mrope":
+            specs["positions"] = sds((b, 3, 1), torch.int32, plan.dp, None, None)
+    specs["pos"] = sds((b,), torch.int32, plan.dp)
+    cache_abs = arch.abstract_cache(b, s, plan, cfg, plan.cache_quant_int8)
+    specs["cache"] = cache_shardings(arch, cache_abs, plan, cfg)
+    return specs
+
+
+def cache_shardings(arch: Arch, cache_abs, plan: MeshPlan, cfg: ModelConfig):
+    """``TensorSpec``s (with shardings) of an abstract cache tree."""
+    if plan.mesh is None:
+        return tree_map_with_path_names(
+            lambda _, leaf: TensorSpec(tuple(leaf.shape), leaf.dtype), cache_abs)
+    cspec = plan.cache_spec()
+
+    def shard_leaf(path: str, leaf) -> TensorSpec:
+        nd = leaf.dim()
+        if "scale" in path:  # int8-cache scales (L, B, S, KH)
+            spec = (None, *cspec[:3])
+        elif "attn" in path or path in ("k", "v"):
+            spec = (None, *cspec)  # (L/n_inv, B, S, KH, Dh)
+        elif "ssm" in path:  # (L, B, H, N, P): heads over tp when divisible
+            h = leaf.shape[2]
+            tp_ok = h % plan.tp_size == 0
+            spec = (None, plan.dp, plan.tp if tp_ok else None, None, None)
+        elif "conv" in path:  # (L, B, W-1, conv_dim)
+            spec = (None, plan.dp, None, plan.tp)
+        elif "wkv" in path:  # (L, B, H, n, n)
+            spec = (None, plan.dp, None, None, None)
+        elif "shift" in path:  # (L, B, d)
+            spec = (None, plan.dp, None)
+        else:
+            spec = tuple([None] * nd)
+        spec = tuple(spec[:nd]) + (None,) * (nd - len(spec))
+        # divisibility guard: drop axis entries that don't divide
+        fixed = []
+        for dim, entry in zip(leaf.shape, spec):
+            if entry is None:
+                fixed.append(None)
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            size = 1
+            for a in axes:
+                size *= plan.axis_size(a)
+            fixed.append(entry if dim % size == 0 else None)
+        return TensorSpec(tuple(leaf.shape), leaf.dtype, plan.ns(*fixed))
+
+    return tree_map_with_path_names(shard_leaf, cache_abs)

@@ -19,14 +19,22 @@ A2`` go through ``layers.dense_apply`` (its row floor), the out-norm through
 ``layers.norm_apply``, and the WKV contraction over i is an fp32 multiply
 and a sum over a fixed axis, not a batched product whose kernel may follow
 b·h.
+
+Under a mesh (``plan`` with a mesh, x a DTensor) the WKV recurrence runs on
+each device's own batch rows (and heads, where they divide the model axis)
+as one operator, ``repro_torch::wkv_scan``, whose implementation is
+``_wkv_scan`` and whose backward recomputes and differentiates it: a run on
+fake tensors (the dry run) steps over the time loop in one call.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Params, _normal, dense_apply, dense_init, norm_apply
+from repro_torch.models.layers import (Params, _normal, dense_apply, dense_init, norm_apply,
+                                       grad_in_layout, recompute_grad, split_heads)
 
 
 def _uniform(gen, shape, device) -> torch.Tensor:
@@ -90,11 +98,58 @@ def _wkv_scan(
     return torch.stack(ys, dim=1), s
 
 
+@torch.library.custom_op("repro_torch::wkv_scan", mutates_args=())
+def wkv_scan_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                u: torch.Tensor, s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _wkv_scan(r, k, v, w, u, s0)
+
+
+@wkv_scan_op.register_fake
+def _(r, k, v, w, u, s0):
+    return r.new_empty(r.shape, dtype=torch.float32), s0.new_empty(s0.shape,
+                                                                   dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::wkv_scan_backward", mutates_args=())
+def _wkv_scan_backward(gy: torch.Tensor, gs: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                       s0: torch.Tensor) -> list[torch.Tensor]:
+    return list(recompute_grad(_wkv_scan, (r, k, v, w, u, s0), (gy, gs)))
+
+
+@_wkv_scan_backward.register_fake
+def _(gy, gs, r, k, v, w, u, s0):
+    return [torch.empty_like(t) for t in (r, k, v, w, u, s0)]
+
+
+def _wkv_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _wkv_backward(ctx, gy, gs):
+    return tuple(_wkv_scan_backward(gy, gs, *ctx.saved_tensors))
+
+
+wkv_scan_op.register_autograd(_wkv_backward, setup_context=_wkv_setup)
+
+
+def _wkv_meshed(plan, r, k, v, w, u, s0):
+    """``_wkv_scan`` on each device's own batch rows and heads (the heads
+    shard over the model axis where they divide it)."""
+    hs = plan.tp if r.shape[2] % plan.tp_size == 0 else None
+    seq4 = (plan.dp, None, hs, None)
+    r, k, v, w = (plan.constrain(t, *seq4) for t in (r, k, v, w))
+    st = (plan.dp, hs, None, None)
+    return plan.local(wkv_scan_op, [seq4, st], r, k, v, w, plan.shard(u, hs, None),
+                      plan.shard(s0, *st))
+
+
 def rwkv6_time_mix_apply(
     p: Params,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, d)
     state: dict | None = None,
+    plan=None,
 ) -> tuple[torch.Tensor, dict]:
     b, s, d = x.shape
     h, n = cfg.rwkv_heads, cfg.rwkv_head_size
@@ -102,20 +157,23 @@ def rwkv6_time_mix_apply(
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
 
-    r = dense_apply(p["wr"], xr).reshape(b, s, h, n)
-    k = dense_apply(p["wk"], xk).reshape(b, s, h, n)
-    v = dense_apply(p["wv"], xv).reshape(b, s, h, n)
+    r = split_heads(dense_apply(p["wr"], xr), h, n)
+    k = split_heads(dense_apply(p["wk"], xk), h, n)
+    v = split_heads(dense_apply(p["wv"], xv), h, n)
     g = F.silu(dense_apply(p["wg"], xg))
 
     # data-dependent decay (the Finch contribution), in fp32
     dd = dense_apply({"kernel": p["decay_lora_b"]},
                      torch.tanh(dense_apply({"kernel": p["decay_lora_a"]}, xw.float())))
-    w = torch.exp(-torch.exp(p["w0"] + dd)).reshape(b, s, h, n)  # in (0, 1)
+    w = split_heads(torch.exp(-torch.exp(p["w0"] + dd)), h, n)  # in (0, 1)
 
     s0 = (state["wkv"] if state else
           torch.zeros((b, h, n, n), dtype=torch.float32, device=x.device))
-    y, s_fin = _wkv_scan(r, k, v, w, p["u"].reshape(h, n), s0)
-    y = norm_apply(p["ln_x"], y.reshape(b, s, d)).to(x.dtype) * g
+    if plan is not None and plan.mesh is not None and isinstance(x, DTensor):
+        y, s_fin = _wkv_meshed(plan, r, k, v, w, p["u"].reshape(h, n), s0)
+    else:
+        y, s_fin = _wkv_scan(r, k, v, w, p["u"].reshape(h, n), s0)
+    y = norm_apply(p["ln_x"], grad_in_layout(y.reshape(b, s, d))).to(x.dtype) * g
     return dense_apply(p["wo"], y), {"shift_t": x[:, -1, :], "wkv": s_fin}
 
 

@@ -10,6 +10,14 @@ over dense, paged and int8 KV caches; the mode is picked by (cache,
 cache_pos, block_table, decode_chunk) exactly as in
 ``layers.attention_apply``.  A layer's FFN is the MoE block
 (``models.moe``) when the config has experts.
+
+``plan`` (a ``sharding.mesh.MeshPlan``; None = one device) shards the
+forward as the reference's: the residual stream sequence-parallel
+(``(dp, tp, None)`` when S > 1), each sublayer's output constrained before
+its residual add, the logits vocab-sharded, KV heads repeated
+``plan.kv_repeat``× in the cache.  A meshed forward takes DTensor params and
+inputs and runs under ``implicit_replication`` (the positions and masks it
+makes are the same on every rank).
 """
 from __future__ import annotations
 
@@ -20,7 +28,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.sharding.mesh import MeshPlan
 from repro_torch.utils.remat import remat as remat_fn
+
+NO_PLAN = MeshPlan()
 
 Params = dict[str, Any]
 
@@ -55,18 +66,27 @@ def layer_apply(
     block_table: torch.Tensor | None = None,
     decode_chunk: bool = False,
     query_rows: int = 0,
+    plan: MeshPlan = NO_PLAN,
 ) -> torch.Tensor:
+    s = x.shape[1]
+    seq = plan.tp if s > 1 else None  # SP only when the seq dim exists
     h, _ = L.attention_apply(
-        p["attn"], cfg, L.norm_apply(p["ln1"], x), positions,
+        p["attn"], cfg, L.norm_apply(p["ln1"], x), positions, plan=plan,
         cache=None if cache is None else cache[:2],
         cache_scales=cache[2:] if cache is not None and len(cache) == 4 else None,
         cache_pos=cache_pos, block_table=block_table, causal=not cfg.encoder_only,
         decode_chunk=decode_chunk, query_rows=query_rows)
+    # constrain the sublayer OUTPUT (a TP partial sum) before the residual
+    # add, so the partial sum reduce-scatters into the sequence shards
+    h = plan.constrain(h, plan.dp, seq, None)
     x = x + h
     hin = L.norm_apply(p["ln2"], x)
     if cfg.n_experts:
-        return x + M.moe_apply(p["moe"], cfg, hin)
-    return x + L.ffn_apply(p["ffn"], hin)
+        h2 = M.moe_apply(p["moe"], cfg, hin, plan=plan)
+    else:
+        h2 = L.ffn_apply(p["ffn"], hin)
+    h2 = plan.constrain(h2, plan.dp, seq, None)
+    return plan.constrain(x + h2, plan.dp, seq, None)
 
 
 def layer_trees(tree: Params, n: int) -> list[Params]:
@@ -94,6 +114,7 @@ def trunk_apply(
     decode_chunk: bool = False,  # speculative-verify window
     query_rows: int = 0,  # decode-style attention's padded query rows
     remat: bool = False,  # training: recompute each layer in the backward
+    plan: MeshPlan = NO_PLAN,
 ) -> tuple[torch.Tensor, dict | None]:
     """Apply the stacked layers in order.  The cache is updated in place
     (each layer writes its view of every leaf) and returned.  With
@@ -105,7 +126,8 @@ def trunk_apply(
     apply = remat_fn(layer_apply, cfg.remat_policy) if remat and cache is None else layer_apply
     for i, lp in enumerate(layer_trees(params["layers"], cfg.n_layers)):
         kv = tuple(cache[n][i] for n in leaves) or None
-        x = apply(lp, cfg, x, positions, kv, cache_pos, block_table, decode_chunk, query_rows)
+        x = apply(lp, cfg, x, positions, kv, cache_pos, block_table, decode_chunk, query_rows,
+                  plan)
     return x, cache
 
 
@@ -122,6 +144,7 @@ def forward(
     decode_chunk: bool = False,  # speculative-verify window
     query_rows: int = 0,  # decode-style attention's padded query rows
     remat: bool = False,  # training: recompute each layer in the backward
+    plan: MeshPlan | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """→ (logits (B, S, V), cache).
 
@@ -133,6 +156,14 @@ def forward(
     its query rows padded to ``query_rows``, 0 = the device's default).
     ``embeds`` replaces the token embedding (hubert's frames, qwen2-vl's
     patch and text embeddings); M-RoPE positions are (B, 3, S)."""
+    plan = plan or NO_PLAN
+    with plan.replicating():
+        return _forward(params, cfg, plan, tokens, embeds, positions, cache, cache_pos,
+                        block_table, decode_chunk, query_rows, remat)
+
+
+def _forward(params, cfg, plan, tokens, embeds, positions, cache, cache_pos, block_table,
+             decode_chunk, query_rows, remat):
     dtype = getattr(torch, cfg.compute_dtype)
     if embeds is None:
         if tokens is None:
@@ -147,12 +178,15 @@ def forward(
             # decode / chunk-resume: absolute positions continue from each
             # row's cache offset
             positions = cache_pos[:, None] + positions
+    x = plan.constrain(x, plan.dp, plan.tp if s > 1 else None, None)
     x, cache = trunk_apply(params, cfg, x, positions, cache, cache_pos, block_table,
-                           decode_chunk, query_rows, remat)
+                           decode_chunk, query_rows, remat, plan)
     x = L.norm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
-        return L.tied_head_apply(params["embed"], x), cache
-    return L.lm_head_apply(params["lm_head"], x), cache
+        logits = L.tied_head_apply(params["embed"], x)
+    else:
+        logits = L.lm_head_apply(params["lm_head"], x)
+    return plan.constrain(logits, plan.dp, None, plan.tp), cache
 
 
 def _kv_cache(shape: tuple[int, ...], device, dtype, quant_int8: bool) -> dict:
@@ -166,14 +200,20 @@ def _kv_cache(shape: tuple[int, ...], device, dtype, quant_int8: bool) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-               dtype=torch.bfloat16, cache_quant_int8: bool = False) -> dict:
+               dtype=torch.bfloat16, cache_quant_int8: bool = False,
+               plan: MeshPlan | None = None) -> dict:
     """Dense KV cache: {"k", "v"} each (L, B, max_len, KH, Dh), zeros.  With
     ``cache_quant_int8`` (the reference's ``MeshPlan.cache_quant_int8``) k
     and v are int8 and ``k_scale`` / ``v_scale`` (L, B, max_len, KH) fp32
     hold one scale per position and head.  One decode step maps the cache
-    to the same leaves (``registry.check_decode_cache_carry``)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return _kv_cache(shape, device, dtype, cache_quant_int8)
+    to the same leaves (``registry.check_decode_cache_carry``).  Under a
+    ``plan`` the KV heads are ``plan.kv_repeat``× n_kv_heads and
+    ``plan.cache_quant_int8`` also asks for int8 (``registry.Arch.init_cache``
+    lays the leaves out on the plan's mesh)."""
+    kh_eff = cfg.n_kv_heads * (plan.kv_repeat if plan else 1)
+    shape = (cfg.n_layers, batch, max_len, kh_eff, cfg.head_dim)
+    return _kv_cache(shape, device, dtype,
+                     cache_quant_int8 or bool(plan and plan.cache_quant_int8))
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_len: int, device,

@@ -1,15 +1,13 @@
-"""Closed-form FLOP / HBM-byte models of one serving launch.
+"""Closed-form FLOP / HBM-byte models of a whole cell and of one serving launch.
 
-The port of the per-launch serving cost models of
-``repro.roofline.analytic`` (``StepCost``, ``decode_step_cost``,
+The port of ``repro.roofline.analytic``: ``CellCost`` / ``analytic_cost``
+and the per-launch serving cost models (``StepCost``, ``decode_step_cost``,
 ``prefill_chunk_cost``, ``spec_verify_cost``, ``step_time``), for the
 families the port serves: the transformer's dense, MoE, encoder and VLM
 configs (SwiGLU or gelu-MLP FFNs, tied or untied LM head, experts), the
 hybrid (zamba2: Mamba2 layers and a shared attention block priced once per
 invocation) and rwkv.  The arithmetic is the reference's, term for term
-and in its order, so both packages price a launch to the same float.  Its
-``analytic_cost`` over a ``ShapeSpec`` (training and whole-cell costs) is
-not ported: ``decode_step_cost`` inlines its decode branch.
+and in its order, so both packages price a launch to the same float.
 
 These price what the serving programs in ``serve/engine.py`` EXECUTE, not
 what is useful: a decode segment attends the full max_len row every step
@@ -18,12 +16,18 @@ is padded to a power-of-two width, and an MoE prefill runs its experts'
 capacity padding.  The trace recorder (``serve/trace.py``) and the knob
 autotuner (``roofline/autotune.py``) both price work through these, so
 their flops/bytes columns are directly comparable.
+
+``analytic_cost`` is the reference's whole-cell model over a ``ShapeSpec``
+(train / prefill / decode), term for term: ``model_flops`` (useful work,
+6·N·D train / 2·N·D inference plus causal-half attention), ``hlo_flops_est``
+(what the program executes: full S² attention, the remat re-forward, MoE
+capacity padding) and the HBM bytes; the dry run prices its cells with it.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.roofline.hw import HWTarget
 
 
@@ -91,6 +95,89 @@ def _attn_flops(cfg: ModelConfig, tokens: float, s_ctx: float, causal: bool,
     return (
         4 * h * dh * useful_ctx * tokens * cfg.n_layers,
         4 * h * dh * s_ctx * tokens * cfg.n_layers,
+    )
+
+
+@dataclasses.dataclass
+class CellCost:
+    model_flops: float  # global useful FLOPs per step
+    hlo_flops_est: float  # global executed FLOPs per step
+    hbm_bytes: float  # global HBM traffic per step (bytes)
+    n_active: float  # active non-embedding params
+    n_total: float
+    breakdown: dict
+
+
+def analytic_cost(
+    cfg: ModelConfig, shape: ShapeSpec, cache_bytes_per_elem: float = 2.0,
+    weight_bytes_per_elem: float = 2.0,
+) -> CellCost:
+    """``cache_bytes_per_elem``: 2.0 for a bf16 KV cache, 1.03 for the int8 +
+    per-position-scale cache.  ``weight_bytes_per_elem``: 2.0 for bf16
+    weights, ~1.01·(1 − sparsity) for the int8 block-sparse serving format."""
+    n_active, n_total = _param_counts(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    kind = shape.kind
+    tokens = float(b * s) if kind != "decode" else float(b)
+    s_ctx = float(s)
+    bytes_per = 2.0  # bf16 activations on the wire
+    wb = weight_bytes_per_elem
+
+    lin_u = 2.0 * n_active * tokens  # useful linear FLOPs, fwd
+    attn_u, attn_x = _attn_flops(cfg, tokens, s_ctx, causal=True,
+                                 decode=(kind == "decode"))
+
+    moe_pad = 1.0
+    if cfg.n_experts and kind != "decode":
+        moe_pad = cfg.moe_capacity_factor  # capacity padding executes as real work
+
+    if kind == "train":
+        # bwd = 2× fwd; remat(nothing_saveable) re-runs fwd once more
+        model = 3.0 * (lin_u + attn_u)
+        hlo = (3.0 + 1.0) * (lin_u * moe_pad + attn_x)
+        weight_traffic = 3.0 * n_total * wb  # fwd + remat-fwd + bwd reads
+        opt_traffic = 2.0 * n_total * (2 + 2) * 2  # m,v read+write (bf16/fp32 mix)
+        act_traffic = 12.0 * tokens * cfg.d_model * bytes_per * cfg.n_layers
+        hbm = weight_traffic + opt_traffic + act_traffic
+    elif kind == "prefill":
+        model = lin_u + attn_u
+        hlo = lin_u * moe_pad + attn_x
+        weight_traffic = n_total * wb
+        act_traffic = 8.0 * tokens * cfg.d_model * bytes_per * cfg.n_layers
+        hbm = weight_traffic + act_traffic
+    else:  # decode
+        model = lin_u + attn_u
+        hlo = lin_u + attn_x
+        weight_traffic = n_active * wb  # active weights read once
+        kh_eff = cfg.n_kv_heads
+        cb = cache_bytes_per_elem
+        cache_traffic = (
+            2.0 * b * s_ctx * kh_eff * cfg.head_dim * cb * cfg.n_layers
+            if not (cfg.rwkv_head_size or cfg.family == "hybrid")
+            else 0.0
+        )
+        if cfg.family == "hybrid":
+            n_inv = _n_inv(cfg)
+            cache_traffic = 2.0 * b * s_ctx * cfg.n_kv_heads * cfg.head_dim * cb * n_inv
+            cache_traffic += (2.0 * b * cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
+                              * cfg.n_layers)
+        if cfg.rwkv_head_size:
+            cache_traffic = 2.0 * b * cfg.d_model * cfg.rwkv_head_size * 4 * cfg.n_layers
+        hbm = (weight_traffic + cache_traffic
+               + 4.0 * b * cfg.d_model * bytes_per * cfg.n_layers)
+    return CellCost(
+        model_flops=model,
+        hlo_flops_est=hlo,
+        hbm_bytes=hbm,
+        n_active=n_active,
+        n_total=n_total,
+        breakdown={
+            "linear_useful": lin_u,
+            "attn_useful": attn_u,
+            "attn_executed": attn_x,
+            "moe_capacity_pad": moe_pad,
+            "tokens": tokens,
+        },
     )
 
 

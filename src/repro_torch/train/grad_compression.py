@@ -4,13 +4,15 @@ The port of ``repro.train.grad_compression``'s single-device half.
 ``add_compressed`` quantizes each microbatch's gradient to int8 (one absmax
 scale per leaf) before it is added, in fp32, to the accumulator, so what
 any one microbatch contributes carries at most one quantization step of
-noise.  ``compressed_psum`` (the int8 all-reduce) waits for the mesh slice.
+noise.  ``compressed_psum`` is the int8 all-reduce over a process group:
+the reference's ``shard_map`` body, with ``torch.distributed`` collectives.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.tree import tree_map
 
@@ -35,6 +37,22 @@ def add_compressed(gacc: Any, g: Any, n_accum: int) -> Any:
         return a + _dequantize(q, s) / n_accum
 
     return tree_map(one, gacc, g)
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8 all-reduce: quantize, sum the ints, dequantize with the max scale.
+
+    Every rank quantizes with its own scale, the scales are max-reduced so
+    dequantization is conservative, every rank requantizes against the
+    shared scale so the integer sum is coherent, the int32 values are
+    summed (as int32, the reference's psum type) and rescaled.  Returns
+    fp32, the same on every rank."""
+    _, s = _quantize_int8(x.float())
+    s_max = s.clone()
+    dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+    q_shared = torch.clamp(torch.round(x.float() / s_max), -127, 127).to(torch.int32)
+    dist.all_reduce(q_shared, op=dist.ReduceOp.SUM, group=group)
+    return q_shared.float() * s_max
 
 
 def compression_error(g: Any) -> Any:

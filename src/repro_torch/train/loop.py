@@ -7,7 +7,8 @@ configs) and returns ``step(state, batch) → (state, metrics)``:
     forward, gradients masked, masks refreshed on the Zhu & Gupta cubic
     schedule every ``mask_update_every`` steps (from the updated params at
     the step before the increment, as the reference's ``lax.cond``; here a
-    host ``if`` on the step);
+    host ``if`` on the caller's step counter, ``step_index``, so a step
+    reads nothing back from the device);
   * L2 regularization (§III.A) on the unexcluded leaves;
   * gradient accumulation over ``grad_accum`` microbatches into an fp32
     accumulator, or through the int8 accumulator (``compressed_accum``,
@@ -15,8 +16,11 @@ configs) and returns ``step(state, batch) → (state, metrics)``:
   * remat of every layer (``TrainConfig.remat``, the config's
     ``remat_policy``).
 
-There is no mesh argument: the reference's ``plan`` comes with the sharding
-slice.  ``TrainConfig.moe_aux_coeff`` is declared and never read, as in the
+``plan`` (a ``sharding.mesh.MeshPlan``) shards the step: the state's
+leaves are DTensors in ``sharding.partition``'s layouts (the batch sharded
+over dp), the forward runs under the plan, each microbatch is every
+device's own share of its rows, and the optimizer's global norm sums the
+leaves' partial squares in one reduction.  ``TrainConfig.moe_aux_coeff`` is declared and never read, as in the
 reference (whose step adds no auxiliary loss).
 
 ``train_loop`` is the host-side driver: it resumes from ``state.step``,
@@ -32,6 +36,7 @@ import signal
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.core.sparsity import SparsityConfig, build_masks, l2_regularization
@@ -59,14 +64,15 @@ class TrainConfig:
     moe_aux_coeff: float = 0.0  # declared, never read (as in the reference)
 
 
-def make_forward_loss(arch, tc: TrainConfig, cfg=None) -> Callable[[Any, dict], torch.Tensor]:
+def make_forward_loss(arch, tc: TrainConfig, cfg=None,
+                      plan=None) -> Callable[[Any, dict], torch.Tensor]:
     """(params, batch) → the scalar training loss: cross-entropy of the
     arch's forward on the batch's inputs, plus ``l2_coeff`` · L2."""
     cfg = cfg or arch.cfg
 
     def forward_loss(params, batch) -> torch.Tensor:
         kwargs = {k: batch[k] for k in INPUT_KEYS if k in batch}
-        logits, _ = arch.forward(params, cfg, remat=tc.remat, **kwargs)
+        logits, _ = arch.forward(params, cfg, plan=plan, remat=tc.remat, **kwargs)
         with record_function("train.loss"):
             loss = ce_loss(logits, batch["labels"])
             if tc.l2_coeff:
@@ -87,16 +93,45 @@ def value_and_grad(forward_loss, params: Any, batch: dict) -> tuple[torch.Tensor
     return loss.detach(), tree_map_with_path_names(lambda name, _: by_name[name], params)
 
 
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _rows(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Rows i·B/n … (i+1)·B/n of v; of a DTensor, of each device's own rows."""
+    if isinstance(v, DTensor):
+        return DTensor.from_local(_rows(v.to_local(), i, n), v.device_mesh, v.placements,
+                                  run_check=False)
+    m = v.shape[0] // n
+    return v[i * m:(i + 1) * m]
+
+
 def _microbatch(batch: dict, i: int, n: int) -> dict:
-    """Rows i·B/n … (i+1)·B/n of every array (the reference's reshape to
-    (n, B/n, …) and its scan over the first axis)."""
-    return {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)] for k, v in batch.items()}
+    """Microbatch i of n: rows i·B/n … (i+1)·B/n of every array (the
+    reference's reshape to (n, B/n, …) and its scan over the first axis);
+    under a mesh, of each device's own rows, so no row moves between
+    devices (the accumulated gradient is the same sum)."""
+    return {k: _rows(v, i, n) for k, v in batch.items()}
 
 
-def build_train_step(arch, tc: TrainConfig, cfg=None) -> Callable[[TrainState, dict], tuple]:
-    forward_loss = make_forward_loss(arch, tc, cfg)
+def build_train_step(arch, tc: TrainConfig, cfg=None,
+                     plan=None) -> Callable[..., tuple]:
+    """``step(state, batch, step_index=None) → (state, metrics)``.
+    ``step_index`` is the caller's count of the state's step (the host's
+    copy of ``state.step``), which decides the mask refresh; None reads
+    ``state.step`` (one read back from the device)."""
+    forward_loss = make_forward_loss(arch, tc, cfg, plan)
 
-    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def step(state: TrainState, batch: dict,
+             step_index: int | None = None) -> tuple[TrainState, dict]:
+        if plan is None or plan.mesh is None:
+            return _step(state, batch, step_index)
+        with plan.replicating():
+            return _step(state, batch, step_index)
+
+    def _step(state: TrainState, batch: dict, step_index: int | None) -> tuple:
         params = state.params
         if state.masks is not None:  # §III.A forward-graph masking
             masked = tree_map(lambda p, m: (p.detach() * m.to(p.dtype)).requires_grad_(),
@@ -106,8 +141,7 @@ def build_train_step(arch, tc: TrainConfig, cfg=None) -> Callable[[TrainState, d
 
         if tc.grad_accum > 1:
             n = tc.grad_accum
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), masked)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), masked)
             loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
             for i in range(n):
                 loss_i, g = value_and_grad(forward_loss, masked, _microbatch(batch, i, n))
@@ -120,6 +154,9 @@ def build_train_step(arch, tc: TrainConfig, cfg=None) -> Callable[[TrainState, d
         else:
             loss, grads = value_and_grad(forward_loss, masked, batch)
         del masked
+        # each gradient in its leaf's layout (a reduction may leave it partial
+        # or in another one), as the reference's step gives them
+        grads = tree_map(_laid_out_as, grads, params)
 
         with record_function("train.optimizer"):
             new_params, new_opt, om = adamw_update(params, grads, state.opt_state, state.step,
@@ -127,14 +164,20 @@ def build_train_step(arch, tc: TrainConfig, cfg=None) -> Callable[[TrainState, d
         del grads
 
         new_masks = state.masks
+        if step_index is None and state.masks is not None:
+            step_index = int(state.step)
         if state.masks is not None and tc.sparsity is not None and (
-                int(state.step) % tc.mask_update_every == 0):
+                step_index % tc.mask_update_every == 0):
             with record_function("train.mask_refresh"):
                 new_masks = build_masks(new_params, tc.sparsity, step=state.step)
 
         new_state = TrainState(params=new_params, opt_state=new_opt, masks=new_masks,
                                step=state.step + 1)
-        return new_state, {"loss": loss, **om}
+        # metrics as plain tensors, the same on every rank (a sharded loss is
+        # a partial sum until reduced)
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in {"loss": loss, **om}.items()}
+        return new_state, metrics
 
     return step
 
@@ -162,7 +205,7 @@ def train_loop(
         start = int(state.step)
         for i in range(start, n_steps):
             batch = data_iter(i)
-            state, metrics = step_fn(state, batch)
+            state, metrics = step_fn(state, batch, i)
             if on_metrics is not None:
                 on_metrics(i, {k: float(v) for k, v in metrics.items()})
             if checkpointer is not None and (
