@@ -262,10 +262,25 @@ Phases, in order; any failure exits non-zero before the last line:
      elements and max |Δ| printed), no hand kernel launched.  Then three
      cells of ``launch/dryrun.py`` under a fake group (``MESH_CELLS``:
      tinyllama-1.1b × train_4k and × decode_32k on (16, 16), grok-1-314b ×
-     train_4k on (2, 16, 16), its 8 experts on TP-split d_ff): each must
-     end ``ok``; its trace seconds, peak bytes per device against 80 GB,
+     train_4k on (2, 16, 16) cut to ``MESH_GROK_LAYERS`` = 8 layers, its 8
+     experts on TP-split d_ff): each must
+     end ``ok`` and fit 80 GB; its trace seconds, peak bytes per device against 80 GB,
      collective counts and wire bytes by kind and the dominant roofline
      term against the H100 datasheet target (estimates, not card numbers).
+     Between the two, on the same mesh, meshed serving
+     (``_mesh_serving``): the main path's engine (tinyllama-1.1b at full
+     width and depth, int8 0.5 at (128, 128)) built again with
+     ``ServeEngine(plan=make_plan(cfg, mesh, 4))`` and with
+     ``serve_stationary``: greedy batch 4 × prompt 64 × 32 new and a
+     continuous run of 8 ``_poisson_draws`` requests (n_slots 4,
+     segment_len 8) must give the plain engine's tokens bit for bit, every
+     program captured as a CUDA graph, none run eagerly; prefill ms and
+     decode ms/token (median, min, max of 7) meshed against plain and
+     against a second plain engine built after them, capture seconds, and
+     the launches per route of this rank's kernels.  Last, a bf16 dense
+     projection (``layers.dense_apply`` at tinyllama's wi) on DTensors
+     must give the plain path's bits at M = 1, 4 and 68.
+ 19. quickstart: ``examples/quickstart_torch.py``'s ``main`` on the card.
 Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -723,6 +738,20 @@ def _int8_step(cfg, params) -> list[tuple]:
     return out
 
 
+def _int8_bound(weights, m: int) -> tuple[float, float, float]:
+    """(bytes, operations, bound seconds) of ``weights``' int8 projections
+    at M = m: kept int8 + scales + indices, x read once (bf16), y written
+    once (fp32); 2·M·kept weights; Σ max(bytes / HBM rate, operations / bf16
+    peak)."""
+    n_bytes = n_ops = bound_s = 0.0
+    for k, v, s, ix in weights:
+        b = v.numel() + 4 * (s.numel() + ix.numel()) + 2 * m * k + 4 * m * v.shape[0] * v.shape[3]
+        ops = 2.0 * m * v.numel()
+        n_bytes, n_ops = n_bytes + b, n_ops + ops
+        bound_s += max(b / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+    return n_bytes, n_ops, bound_s
+
+
 def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
     cfg, params, dev = eng.cfg, eng.params, eng.device
     weights = _int8_step(cfg, params)  # one step's 155 projections
@@ -734,13 +763,7 @@ def phase_timing(eng, launches: dict, errs: dict) -> list[dict]:
         m = rows[name]
         xs = {k: torch.randn((m, k), device=dev, dtype=torch.bfloat16)
               for k in (cfg.d_model, cfg.d_ff)}
-        n_bytes = n_ops = bound_s = 0.0
-        for k, v, s, ix in weights:
-            # kept int8 + scales + indices, x read once (bf16), y written once (fp32)
-            b = v.numel() + 4 * (s.numel() + ix.numel()) + 2 * m * k + 4 * m * v.shape[0] * v.shape[3]
-            ops = 2.0 * m * v.numel()
-            n_bytes, n_ops = n_bytes + b, n_ops + ops
-            bound_s += max(b / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+        n_bytes, n_ops, bound_s = _int8_bound(weights, m)
 
         def run(fn, subset=weights):
             return lambda: [fn(xs[k], v, s, ix) for k, v, s, ix in subset]
@@ -1405,6 +1428,41 @@ def _draft_step_timing(e) -> dict:
     return out
 
 
+def _int8_window_timing(eng, m: int) -> dict:
+    """block_sparse_matmul_int8 over one step's 155 served projections at M
+    = m rows (a verify window B·(k+1)), bf16 x: each launch held to its
+    plain version within ``TOL``; then the times of the kernel, the plain
+    version and x @ the densified bf16 weight (device ms, a CUDA graph
+    between CUDA events), and the bound (``_int8_bound``)."""
+    kn = KERNELS[INT8_MATMUL]
+    cfg, dev = eng.cfg, eng.device
+    weights = _int8_step(cfg, eng.params)
+    dense = [BlockSparseWeightInt8(v, s, ix, k // v.shape[2]).dense(torch.bfloat16)
+             for k, v, s, ix in weights]
+    xs = {k: torch.randn((m, k), device=dev, dtype=torch.bfloat16)
+          for k in (cfg.d_model, cfg.d_ff)}
+    n_bytes, n_ops, bound_s = _int8_bound(weights, m)
+    err = 0.0
+    for k, v, s, ix in weights:
+        got, want = kn["wrapper"](xs[k], v, s, ix), kn["plain"](xs[k], v, s, ix)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+        err = max(err, (got - want).abs().max().item())
+
+    def run(fn):
+        return lambda: [fn(xs[k], v, s, ix) for k, v, s, ix in weights]
+
+    before = kn["wrapper"].routes.get(build.TENSOR_CORES, 0)
+    out = {"rows": m, "launches_per_step": len(weights), "checked_against_plain": len(weights),
+           "tolerance": TOL, "max_abs_err": err, "ms": _step_ms(run(kn["wrapper"])),
+           "plain_ms": _step_ms(run(kn["plain"])), "bound_ms": bound_s * 1e3,
+           "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / BF16_TENSOR_FLOPS
+           else "operations",
+           "library_ms": _step_ms(lambda: [xs[k] @ d for (k, *_), d in zip(weights, dense)])}
+    if kn["wrapper"].routes.get(build.TENSOR_CORES, 0) == before:
+        raise AssertionError(f"speculative: the M = {m} window's launches took no tensor core")
+    return out
+
+
 def phase_speculative(eng, card: str) -> dict:
     """Speculative decoding through ``ContinuousScheduler`` at full width,
     each spec program one CUDA graph of one round per geometry, replayed.
@@ -1424,6 +1482,7 @@ def phase_speculative(eng, card: str) -> dict:
     geometry, none run eagerly.
 
     Then block_sparse_matmul's time for one draft step of the self-drafter,
+    block_sparse_matmul_int8's for one verify window (M = 4 × (k + 1) = 20),
     and, timed: 32 requests at 100 requests/s through
     ``launch.serve.run_poisson``, dense while, plain and the three k = 4
     drafters on the same draws: a first run captures, 3 timed runs (median,
@@ -1531,6 +1590,8 @@ def phase_speculative(eng, card: str) -> dict:
                                  f"per program")
     draft_step = _draft_step_timing(engines["self075_dense"])
     out["draft_step_block_sparse_matmul"] = draft_step
+    window = _int8_window_timing(eng, 4 * (SPEC_K + 1))  # n_slots 4 × (k + 1) rows
+    out["verify_window_block_sparse_matmul_int8"] = window
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     # launches of one k = 4 round (a replay of the while program), by drafter
@@ -1541,6 +1602,7 @@ def phase_speculative(eng, card: str) -> dict:
                                                  for d, r in per_round.items()}}
               for name in ("block_sparse_matmul", INT8_MATVEC, INT8_MATMUL)}
     extras["block_sparse_matmul"]["spec_draft_step"] = draft_step
+    extras[INT8_MATMUL]["spec_verify_window"] = window
     for key in ("k2_int8_kv", "k2_paged", "k2_dense", "truncate1_paged", "truncate22_dense",
                 "k16_truncate22_dense", "k16_truncate22_dense_bf16"):
         del engines[key]
@@ -3126,8 +3188,13 @@ def phase_train(card: str, dev) -> None:
 
 
 MESH_LAYERS, MESH_SEQ = 2, 1024
+# (arch, shape, multi-pod)
 MESH_CELLS = (("tinyllama-1.1b", "train_4k", False), ("tinyllama-1.1b", "decode_32k", False),
               ("grok-1-314b", "train_4k", True))
+# grok's cell is cut to 8 of its 64 layers (at full depth it traces for 3–4
+# minutes on the host; the whole dry run, ``tools/mesh_phase.py
+# --dry-run-all``, traces it so)
+MESH_GROK_LAYERS = 8
 
 
 def _full(tree):
@@ -3138,6 +3205,104 @@ def _full(tree):
 
 def _max_abs(a: dict, b: dict) -> float:
     return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def _schedule(e, prompts, n_news) -> list:
+    """Every request's tokens from a ``ContinuousScheduler`` run (n_slots
+    4, segment_len 8), all submitted before the first segment."""
+    sched = ContinuousScheduler(e, n_slots=4, segment_len=8)
+    handles = [sched.submit(p, int(n)) for p, n in zip(prompts, n_news)]
+    sched.run()
+    if not all(h.done for h in handles):
+        raise AssertionError("mesh serving: a request did not finish")
+    return [h.tokens for h in handles]
+
+
+def _mesh_projection_bits(dev, mesh) -> dict:
+    """bf16 ``layers.dense_apply`` on DTensors (x batch-split, w split as
+    FSDP and TP split it) against the plain path on the same x at
+    tinyllama-1.1b's wi (2048 → 5632): {M: differing entries} at M = 1, 4
+    and 68 (the plain path runs 64-row chunks)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((68, 1, 2048), generator=g, device=dev).bfloat16()
+    w = (torch.randn((2048, 5632), generator=g, device=dev) * 2048**-0.5).bfloat16()
+    wd = distribute_tensor(w, mesh, [Shard(0), Shard(1)])
+    out = {}
+    for m in (1, 4, 68):
+        got = layers.dense_apply({"kernel": wd}, distribute_tensor(
+            x[:m], mesh, [Shard(0), Replicate()])).full_tensor()
+        out[m] = int((got != layers.dense_apply({"kernel": w}, x[:m])).sum())
+    return out
+
+
+def _mesh_serving(card: str, dev, mesh) -> dict:
+    """The main path's engine on the mesh (see the module doc, phase 18):
+    meshed and ``serve_stationary`` against the plain engine, then a second
+    plain engine (its decode mode beside the first's)."""
+    args = serve.parse_args(MAIN_ARGS)
+    plain = serve.build_engine(args)
+    cfg = plain.cfg
+    prompts = serve.make_prompts(args, cfg.vocab_size)
+    _, _, n_news, requests = serve._poisson_draws(_cont_args(8, 100.0, 8), cfg.vocab_size)
+    cont_sc = _cont_engine(plain).sc
+    want = {"generate": plain.generate(prompts, args.new_tokens).cpu(),
+            "continuous": _schedule(ServeEngine(plain.arch, plain.params, cont_sc, dev),
+                                    requests, n_news)}
+    out = {"model": "tinyllama-1.1b", "layers": cfg.n_layers, "mesh": [1, 1],
+           "batch": args.batch, "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
+           "requests": len(requests),
+           "plain": _loop_timing(plain, prompts, args.new_tokens)}
+    for name, kw in (("meshed", {}), ("serve_stationary", {"serve_stationary": True})):
+        plan = make_plan(cfg, mesh, args.batch, **kw)
+        e = ServeEngine(plain.arch, plain.params, plain.sc, dev, plan=plan)
+        _zero_counts()
+        got = e.generate(prompts, args.new_tokens).cpu()
+        torch.cuda.synchronize()
+        counts = counters.snapshot()
+        ce = ServeEngine(plain.arch, plain.params, cont_sc, dev, plan=plan)
+        _zero_counts()
+        cont = _schedule(ce, requests, n_news)
+        torch.cuda.synchronize()
+        cont_counts = counters.snapshot()
+        line = {
+            "attn_shard": plan.attn_shard, "generate_bits_equal": bool(torch.equal(got,
+                                                                              want["generate"])),
+            "continuous_differing_requests": sum(a != b for a, b in
+                                                 zip(cont, want["continuous"])),
+            "captures": _captures(e), "capture_seconds": {k: v for k, v in
+                                                          e.capture_seconds.items() if v},
+            "slot_captures": _slot_captures_once(ce),
+            "slot_capture_seconds": {k: v for k, v in ce.capture_seconds.items() if v},
+            "slot_eager_runs": ce.slot_eager_runs,
+            "launches_per_rank": {"generate": _counts(counts),
+                                  "routes": {n: r for n, (c, r) in counts.items() if c},
+                                  "continuous": _counts(cont_counts)},
+            "graphed_launches": {
+                "prefill": _counts(e.graph_launches()["prefill"][(args.batch,
+                                                                  args.prompt_len)]),
+                "decode_step": _counts(e.graph_launches()["decode"][args.batch])},
+            "timing": _loop_timing(e, prompts, args.new_tokens)}
+        line["decode_ms_per_token_over_plain"] = (
+            line["timing"]["decode_ms_per_token"]["median"]
+            / out["plain"]["decode_ms_per_token"]["median"])
+        out[name] = line
+        if (not line["generate_bits_equal"] or line["continuous_differing_requests"]
+                or _captures(e) != {"prefill": 1, "decode": 1} or ce.slot_eager_runs
+                or any(counts[n][0] == 0 or counts[n][1].get(build.CUDA_CORES, 0)
+                       for n in KERNELS) or any(cont_counts[n][0] == 0 for n in KERNELS)):
+            raise AssertionError(f"mesh serving {name}: {line}")
+        del e, ce
+    again = ServeEngine(plain.arch, plain.params, plain.sc, dev)
+    if not torch.equal(again.generate(prompts, args.new_tokens).cpu(), want["generate"]):
+        raise AssertionError("mesh serving: a second plain engine's tokens differ")
+    out["plain_again"] = _loop_timing(again, prompts, args.new_tokens)  # captured above
+    del plain, again
+    out["bf16_projection_differing"] = _mesh_projection_bits(dev, mesh)
+    if any(out["bf16_projection_differing"].values()):
+        raise AssertionError(f"mesh serving: bf16 projection {out['bf16_projection_differing']}")
+    return out
 
 
 def phase_mesh(card: str, dev) -> None:
@@ -3182,6 +3347,11 @@ def phase_mesh(card: str, dev) -> None:
         gnorm_same = bool(torch.equal(mm["grad_norm"], pm["grad_norm"]))
         max_abs = _max_abs(_full(meshed.params), _full(plain.params))
         del run, state, plain, meshed, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_serve = time.perf_counter()
+    serving = _mesh_serving(card, dev, mesh)
+    serving["seconds"] = time.perf_counter() - t_serve
     dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3197,20 +3367,49 @@ def phase_mesh(card: str, dev) -> None:
         raise AssertionError(f"mesh: {one_rank}")
     cells = []
     for arch_id, shape, multi in MESH_CELLS:
-        rec = dryrun.run_cell(arch_id, shape, multi, verbose=False)
-        if rec["status"] != "ok":
-            raise AssertionError(f"mesh: dry run {arch_id} × {shape}: {rec.get('error')}\n"
+        arch = get_arch(arch_id)
+        if arch_id == "grok-1-314b":
+            arch = dataclasses.replace(arch, cfg=arch.cfg.replace(n_layers=MESH_GROK_LAYERS))
+        rec = dryrun.run_cell(arch_id, shape, multi, verbose=False, arch=arch)
+        if rec["status"] != "ok" or not rec["fits"]:
+            raise AssertionError(f"mesh: dry run {arch_id} × {shape}: {rec['status']}, fits "
+                                 f"{rec.get('fits')}: {rec.get('error')}\n"
                                  f"{rec.get('traceback')}")
         cells.append({k: rec[k] for k in ("arch", "shape", "mesh", "step_fn", "n_chips",
                                           "trace_s", "fits", "collectives", "roofline")}
-                     | {"peak_gb_per_dev": rec["memory"]["peak_bytes_per_dev_est"] / 1e9,
+                     | {"layers": arch.cfg.n_layers,
+                        "peak_gb_per_dev": rec["memory"]["peak_bytes_per_dev_est"] / 1e9,
                         "argument_gb_per_dev": rec["memory"]["argument_bytes_per_dev"] / 1e9,
                         "flops_per_dev": rec["hlo_cost"]["flops_per_dev_raw"]})
     if dist.is_initialized():
         dist.destroy_process_group()
     emit({"phase": "mesh", "card": card, "one_rank_train_step": one_rank,
-          "dry_run_cells": cells, "dry_run_target": "H100 datasheet (roofline/hw.py), estimates",
+          "serving": serving, "dry_run_cells": cells,
+          "dry_run_target": "H100 datasheet (roofline/hw.py), estimates",
           "hbm_gb": 80, "seconds": time.perf_counter() - t0})
+
+
+def phase_quickstart(card: str) -> None:
+    """``examples/quickstart_torch.py``'s ``main`` on the card (reduced
+    tinyllama: dense and clustered generation, C1 / C2 stats, the photonic
+    pricing of the full model, which is a model output)."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _zero_counts()
+    got = mod.main(["--device", "cuda"])
+    if got["dense"].shape != (2, 12) or got["sonic"].shape != (2, 12):
+        raise AssertionError(f"quickstart: tokens {got['dense'].shape}, {got['sonic'].shape}")
+    emit({"phase": "quickstart", "card": card, "dense_tokens": got["dense"][0].tolist(),
+          "sonic_tokens": got["sonic"][0].tolist(), "c1_sparsity": got["c1_sparsity"],
+          "c2_bits_ratio": got["c2_ratio"],
+          "launches": {n: c for n, (c, _) in counters.snapshot().items() if c},
+          "sonic_fps_per_w": got["reports"]["SONIC"].fps_per_w, "photonic": PHOTONIC,
+          "seconds": time.perf_counter() - t0})
 
 
 @torch.inference_mode()
@@ -3261,6 +3460,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh(card, dev)
+    phase_quickstart(card)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -224,6 +224,26 @@ def sparsity_of(x: torch.Tensor, atol: float = 0.0) -> float:
     return zero.sum().item() / max(x.numel(), 1)
 
 
+class _SumOfSquares(torch.autograd.Function):
+    """Σ w² in fp32, its gradient 2·g·w computed in w's own layout (and
+    type: the bits of autograd's ``w.float().square().sum()``, as doubling
+    is exact).  On a DTensor whose dim is split over two mesh axes (d_model
+    over ("pod", "data")), autograd's own backward of that expression makes
+    DTensor lay the broadcast gradient out over one of them only: a copy of
+    the leaf gathered over the other (26 GB a device for grok-1's stacked
+    expert ``wo``)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.save_for_backward(w)
+        return w.float().square().sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return (w.float() * (2 * g)).to(w.dtype)
+
+
 def l2_regularization(params: Any,
                       exclude: Sequence[str] = ("norm", "bias", "scale")) -> torch.Tensor:
     """The L2 term the paper adds "to encourage smaller weight values"
@@ -231,6 +251,6 @@ def l2_regularization(params: Any,
     total = None
     for name, w in named_leaves(params):
         if not any(pat in name for pat in exclude):
-            term = w.float().square().sum()
+            term = _SumOfSquares.apply(w)
             total = term if total is None else total + term
     return torch.zeros((), dtype=torch.float32) if total is None else total

@@ -136,6 +136,14 @@ def grad_in_layout(t: torch.Tensor) -> torch.Tensor:
     return _GradInLayout.apply(t) if isinstance(t, DTensor) else t
 
 
+def _from_local(y: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """y, each device's block, as the DTensor of global ``shape`` (contiguous)
+    laid out by ``placements``."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(y, mesh, placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     """t (B, S, n·dh) → (B, S, n, dh).  A DTensor whose last dim is sharded
     over more devices than n divides is gathered on that dim first (as
@@ -168,8 +176,73 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(*t.shape[:2], t.shape[2] * t.shape[3])
 
 
+def _blocks_meshed(apply, p: Params, x: DTensor) -> DTensor:
+    """A column-block projection (int8 ``qvalues`` or the self drafter's
+    ``bsvalues``, laid out by ``partition.block_column_spec``) on DTensors:
+    x gathered but for its batch split, so each device's kernels run on
+    its rows' whole K and its own column blocks; y (…, N) split as x's
+    batch and the blocks' columns.  The hand kernels have no DTensor
+    rules: they run on the local blocks, one launch per device."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    vals = p["qvalues"] if "qvalues" in p else p["bsvalues"]
+    nb_dim = vals.dim() - 4
+    xpl = tuple(q if type(q) is Shard and q.dim == 0 else Replicate() for q in x.placements)
+    if xpl != tuple(x.placements):
+        x = x.redistribute(mesh, xpl)
+    ypl = tuple(Shard(x.dim() - 1) if isinstance(q, Shard) and q.dim == nb_dim else xpl[i]
+                for i, q in enumerate(vals.placements))
+    y = apply({k: v.to_local() for k, v in p.items() if k != "bias"}, x.to_local())
+    return _from_local(y, mesh, ypl, (*x.shape[:-1], vals.shape[nb_dim] * vals.shape[-1]))
+
+
+def _dense_meshed(x: DTensor, w: DTensor) -> DTensor:
+    """x @ w (w (K, N)) on DTensors as the plain serving path computes it:
+    each device's own rows through ``fixed_rows`` against its own block of
+    w, so a row's bits do not depend on M.  Per mesh dim: x's batch split
+    and w's column split carry over to y; a K split on both gives partial
+    sums, gathered and added in rank order (an all-reduce adds in an order
+    that follows its chunking of the output, so depends on M); any other
+    split of w is gathered first (FSDP)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    wpl, ypl = list(w.placements), []
+    for i, (qx, qw) in enumerate(zip(x.placements, w.placements)):
+        x_k = type(qx) is Shard and qx.dim == last
+        if mesh.size(i) == 1:
+            ypl.append(Replicate())
+        elif x_k and type(qw) is Shard and qw.dim == 0:
+            ypl.append(Partial())  # summed below
+        elif x_k or not isinstance(qx, (Replicate, Shard)) or isinstance(qw, Partial):
+            raise ValueError(f"dense_apply: no local product for x {x.placements} "
+                             f"@ w {w.placements}")
+        elif type(qw) is Shard and qw.dim == 1 and isinstance(qx, Replicate):
+            ypl.append(Shard(last))
+        else:  # w replicated over this dim, or gathered over it
+            wpl[i] = Replicate()
+            ypl.append(qx)
+    if wpl != list(w.placements):
+        w = w.redistribute(mesh, wpl)
+    xl, wl = x.to_local(), w.to_local()
+    y = fixed_rows(lambda xx: xx @ wl, xl.reshape(-1, xl.shape[-1]))
+    for i, q in enumerate(ypl):
+        if isinstance(q, Partial):
+            parts = funcol.all_gather_tensor(y, 0, (mesh, i)).view(mesh.size(i), *y.shape)
+            y = parts[0]
+            for j in range(1, mesh.size(i)):
+                y = y + parts[j]
+            ypl[i] = Replicate()
+    return _from_local(y.reshape(*xl.shape[:-1], wl.shape[-1]), mesh, tuple(ypl),
+                       (*x.shape[:-1], w.shape[-1]))
+
+
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    if "qvalues" in p:  # int8 block-sparse serving weights: the projection
+    if isinstance(x, DTensor) and ("qvalues" in p or "bsvalues" in p):
+        y = _blocks_meshed(serve_quant_apply if "qvalues" in p else draft_apply, p, x)
+    elif "qvalues" in p:  # int8 block-sparse serving weights: the projection
         # dict was rewritten by ``quantize_serve_params``; the kernels
         # contract only the kept blocks against their per-block scales
         y = serve_quant_apply(p, x)
@@ -178,8 +251,10 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
         y = draft_apply(p, x)
     else:
         w = p["kernel"].to(x.dtype)
-        if isinstance(x, DTensor):  # sharded: one product, no row floors
+        if isinstance(x, DTensor) and torch.is_grad_enabled():  # training: one product
             y = grad_in_layout(_rows_gathered(x) @ w)
+        elif isinstance(x, DTensor):  # serving: each device's rows in fixed chunks
+            y = _dense_meshed(_rows_gathered(x), w)
         else:
             x2 = x.reshape(-1, x.shape[-1])
             if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -199,17 +274,32 @@ def norm_init(cfg: ModelConfig, device, lead=()) -> Params:
     return p
 
 
+def _row_mean(t: torch.Tensor, floor: int) -> torch.Tensor:
+    """The mean over t's last dim, over at least ``floor`` rows."""
+    m = at_least_rows(lambda tt: tt.mean(-1, keepdim=True), t.reshape(-1, t.shape[-1]), floor)
+    return m.reshape(*t.shape[:-1], 1)
+
+
 def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm, or layernorm where ``p`` has a ``norm_bias``, in fp32, back
     to x's type.  Each mean runs over at least the row floor (a CUDA
     reduction picks its threads by the number of rows)."""
 
+    floor = _row_floor(x)
+
     def mean(t: torch.Tensor) -> torch.Tensor:
-        if isinstance(t, DTensor):  # sharded: as laid out, no row floor
+        if not isinstance(t, DTensor):
+            return _row_mean(t, floor)
+        from torch.distributed.tensor import Replicate, Shard
+
+        rows_whole = all(isinstance(q, Replicate) or (type(q) is Shard and q.dim < t.dim() - 1)
+                         for q in t.placements)
+        if torch.is_grad_enabled() or not rows_whole:  # as laid out
             return t.mean(-1, keepdim=True)
-        m = at_least_rows(lambda tt: tt.mean(-1, keepdim=True), t.reshape(-1, t.shape[-1]),
-                          _row_floor(x))
-        return m.reshape(*t.shape[:-1], 1)
+        # serving, the rows whole on each device: its own rows, with the
+        # plain path's row floor
+        return _from_local(_row_mean(t.to_local(), floor), t.device_mesh, t.placements,
+                           (*t.shape[:-1], 1))
 
     xf = x.float()
     if "norm_bias" in p:  # layernorm
@@ -788,7 +878,11 @@ def _attention_meshed(p, plan, q, k, v, pos2d, *, cache, cache_scales, cache_pos
     elif plan.attn_shard == "seq" and s > 1:
         # sequence-parallel attention: queries keep their S-shard, K/V
         # replicate over tp; each shard attends its query slice over full K/V
+        # (a prompt whose length tp does not divide: every device attends
+        # all of it, as an uneven split has no local blocks of one shape)
         q_spec, kv_spec, qpos_spec = (dp, tp, None, None), (dp, None, None, None), (dp, tp)
+        if s % plan.tp_size:
+            q_spec, qpos_spec = kv_spec, (dp, None)
     elif plan.attn_shard == "head_dim":
         q_spec = kv_spec = (dp, None, None, tp)
         qpos_spec = (dp, None)

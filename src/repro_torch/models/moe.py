@@ -275,6 +275,17 @@ def _combine_rows(k: int, cap: int, e0: int, out_buf, gate_buf, experts, slot, k
     return out
 
 
+def _gathered_over_dp(w: torch.Tensor, plan) -> torch.Tensor:
+    """w (a DTensor) replicated over the plan's dp axes, its other splits
+    kept."""
+    from torch.distributed.tensor import Replicate
+
+    names = w.device_mesh.mesh_dim_names
+    pl = tuple(Replicate() if names[i] in plan.dp_axes else q
+               for i, q in enumerate(w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
+
+
 def _moe_apply_meshed(p: Params, cfg: ModelConfig, x: torch.Tensor, plan,
                       capacity_factor: float | None) -> torch.Tensor:
     """``moe_apply`` on DTensors (see the module doc)."""
@@ -297,7 +308,14 @@ def _moe_apply_meshed(p: Params, cfg: ModelConfig, x: torch.Tensor, plan,
     # dp-major → model-major on experts: the expert all-to-all (EP only)
     buf = plan.local(lambda t: t.transpose(0, 1).reshape(t.shape[1], -1, d),
                      (e_spec, dp, None), buf)
-    out_buf = _expert_ffn(p, cfg, buf)  # (E, B·C, d); TP: partial over model
+    # the expert weights gathered over the dp axes first (FSDP): the
+    # batched products then meet no split of their contraction or expert
+    # dims over dp, and each weight's gradient leaves the backward reduced
+    # into its own layout, not into one DTensor picked for the product
+    # (which on (pod, data) split the experts over pod, and regathered all
+    # of d_model to lay the gradient out again)
+    pw = {n: _gathered_over_dp(w, plan) for n, w in p.items() if n in ("wi", "wg", "wo")}
+    out_buf = _expert_ffn(pw, cfg, buf)  # (E, B·C, d); TP: partial over model
     out_buf = plan.constrain(out_buf, e_spec, dp, None)
     # back to dp-major token dim, experts KEPT tp-sharded under EP
     out_buf = plan.local(lambda t: t.reshape(t.shape[0], -1, cap, d).transpose(0, 1),

@@ -52,6 +52,21 @@ hybrid and rwkv trees (their blocks read dense kernels too).
 the KV cache int8 with one fp32 scale per position and head; for the
 recurrent families it does nothing, as in the reference.
 
+On a mesh (``plan``, a ``sharding.mesh.MeshPlan`` with a mesh; the
+reference's positional plan): the params are laid out by
+``partition.shard_serve_params`` (``param_specs``, without FSDP under
+``plan.serve_stationary``; the int8 and self-drafter column blocks over tp,
+which the hand kernels run on each rank's own blocks), every cache comes
+from ``Arch.init_cache(..., plan=)``, and every forward of ``generate``,
+the slot programs and the drafters takes the plan, its logits gathered
+whole on every rank, so the host's sampling and policy run as without a
+mesh.  ``generate`` splits its batch over the dp axes where it divides
+them; the slot programs keep their slots replicated over dp (each slot
+write and gather is then every rank's own), the model's other splits as
+the plan makes them.  The paged layout is refused under a mesh, as the
+reference refuses it (its pool has no layout).  A plan without a mesh is
+the plan-less engine.
+
 Semantics (as in the reference): the first token is sampled from the
 prefill logits and is never eos-pinned; every subsequent token is
 eos-checked, and once a sequence has emitted ``eos_token`` all its later
@@ -131,6 +146,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import SHAPES
 from repro_torch.core.sonic_layers import (quantize_serve_params, sparse_draft_params,
@@ -140,6 +156,8 @@ from repro_torch.models import registry
 from repro_torch.models.layers import decode_query_rows
 from repro_torch.models.registry import Arch
 from repro_torch.serve.sampling import sample_token, spec_accept
+from repro_torch.sharding.mesh import MeshPlan
+from repro_torch.sharding.partition import shard_serve_params
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("serve")
@@ -242,6 +260,19 @@ def _has_kernels(tree) -> bool:
         _has_kernels(v) for v in tree.values()))
 
 
+def _local(cache: dict) -> dict:
+    """Each rank's own block of every cache leaf (views: writes land in the
+    DTensors)."""
+    return {k: v.to_local() if isinstance(v, DTensor) else v for k, v in cache.items()}
+
+
+def _laid_out_as(local: dict, like: dict) -> dict:
+    """Local blocks as DTensors in the layout of ``like``'s leaves (an even
+    split of each sharded dim; plain tensors where ``like``'s are)."""
+    return {k: DTensor.from_local(v, like[k].device_mesh, like[k].placements, run_check=False)
+            if isinstance(like[k], DTensor) else v for k, v in local.items()}
+
+
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -341,7 +372,7 @@ class SlotState:
 
 class ServeEngine:
     def __init__(self, arch: Arch, params: dict, sc: ServeConfig, device="cuda", *,
-                 cache_quant_int8: bool = False):
+                 cache_quant_int8: bool = False, plan: MeshPlan | None = None):
         if sc.weight_quant not in ("none", "int8"):
             raise ValueError(f"weight_quant must be 'none' or 'int8', got {sc.weight_quant!r}")
         if sc.loop not in LOOPS:
@@ -353,6 +384,17 @@ class ServeEngine:
             # cache the dense row's shape, which the bitwise contract needs
             raise ValueError(f"max_len {sc.max_len} is not a multiple of block_len "
                              f"{sc.block_len}")
+        if plan is not None and plan.cache_quant_int8 != cache_quant_int8:
+            raise ValueError(f"plan.cache_quant_int8={plan.cache_quant_int8} disagrees with "
+                             f"cache_quant_int8={cache_quant_int8}")
+        self.plan = plan if plan is not None and plan.mesh is not None else None
+        if self.plan is not None and sc.kv_layout == "paged":
+            # the reference's reason: the paged branch applies no cache
+            # layout, so under a mesh the pool would be replicated, defeating
+            # the memory ceiling
+            raise ValueError("kv_layout='paged' is not wired for meshed serving yet "
+                             "(pool sharding constraints missing: the pool would be "
+                             "replicated on every device)")
         ok, reason = arch.supports(SHAPES["decode_32k"])
         if not ok:  # the reference's skip matrix: an encoder has no decode step
             raise ValueError(f"{arch.arch_id}: {reason}")
@@ -368,6 +410,9 @@ class ServeEngine:
         if sc.weight_quant == "int8":
             params = quantize_serve_params(params, sparsity=sc.weight_quant_sparsity,
                                            block=sc.weight_quant_block)
+        if self.plan is not None:
+            with torch.inference_mode():  # the serving calls' mode: DTensor views them there
+                params = shard_serve_params(params, self.plan)
         self.arch, self.params, self.sc, self.cfg = arch, params, sc, arch.cfg
         self.cache_quant_int8 = cache_quant_int8
         self.graphs = sc.loop != "python" and self.device.type == "cuda"
@@ -423,6 +468,9 @@ class ServeEngine:
             self.draft_params = sparse_draft_params(
                 raw, sc.spec.draft_sparsity, num_clusters=sc.spec.draft_clusters,
                 dtype=getattr(torch, self.cfg.compute_dtype))
+            if self.plan is not None:
+                with torch.inference_mode():
+                    self.draft_params = shard_serve_params(self.draft_params, self.plan)
         else:
             n = int(sc.spec.draft.split(":", 1)[1])
             if not 1 <= n <= self.cfg.n_layers:
@@ -431,13 +479,46 @@ class ServeEngine:
             self.draft_cfg = self.cfg.replace(n_layers=n)
             self.draft_params = truncated_draft_params(self.params, n)
 
+    # ------------------------------------------------------------ the mesh
+
+    def _plan_for(self, b: int) -> MeshPlan | None:
+        """The plan of ``generate`` at batch b: its batch split over the dp
+        axes where b divides them, else replicated."""
+        p = self.plan
+        if p is None:
+            return None
+        return dataclasses.replace(p, shard_batch=p.shard_batch and b % p.dp_size == 0)
+
+    @property
+    def _slot_plan(self) -> MeshPlan | None:
+        """The slot programs' plan: the slots replicated over the dp axes
+        (the model's other splits kept), so that every slot write and gather
+        is each rank's own."""
+        return None if self.plan is None else dataclasses.replace(self.plan, shard_batch=False)
+
+    def _logits(self, params: dict, plan: MeshPlan | None, tokens: torch.Tensor, cache: dict,
+                cfg=None, cache_pos: torch.Tensor | None = None, **kw) -> torch.Tensor:
+        """The model's logits (B, S, V) over ``cache``, a plain tensor on
+        every rank: under a mesh the tokens and positions go in split as
+        the batch, and the logits come out whole."""
+        if plan is None:
+            return self.arch.forward(params, cfg, tokens=tokens, cache=cache,
+                                     cache_pos=cache_pos, **kw)[0]
+        tokens = plan.shard(tokens, plan.dp, None)
+        if cache_pos is not None:
+            cache_pos = plan.shard(cache_pos, plan.dp)
+        logits, _ = self.arch.forward(params, cfg, plan=plan, tokens=tokens, cache=cache,
+                                      cache_pos=cache_pos, **kw)
+        return logits.full_tensor()
+
     # ------------------------------------------------------------ the step
 
     def _state(self, b: int) -> _State:
         if b not in self._states:
             dev, n = self.device, self.sc.max_len
             self._states[b] = _State(
-                cache=self.arch.init_cache(b, n, dev, cache_quant_int8=self.cache_quant_int8),
+                cache=self.arch.init_cache(b, n, dev, cache_quant_int8=self.cache_quant_int8,
+                                           plan=self._plan_for(b)),
                 tok=torch.zeros((b,), dtype=torch.long, device=dev),
                 pos=torch.zeros((b,), dtype=torch.long, device=dev),
                 done=torch.zeros((b,), dtype=torch.bool, device=dev),
@@ -455,7 +536,7 @@ class ServeEngine:
         first token (never eos-pinned) into column 0."""
         for leaf in st.cache.values():
             leaf.zero_()
-        logits, _ = self.arch.forward(self.params, tokens=prompts, cache=st.cache)
+        logits = self._logits(self.params, self._plan_for(prompts.shape[0]), prompts, st.cache)
         last = logits[:, -1]
         st.logits.copy_(last.float())
         st.tok.copy_(self._sample(last, generator))
@@ -467,8 +548,8 @@ class ServeEngine:
     def _step(self, st: _State, generator) -> None:
         """One decode step, in place: forward the carried token at ``pos``,
         sample, eos-check and pin, write the next output column."""
-        logits, _ = self.arch.forward(self.params, tokens=st.tok[:, None], cache=st.cache,
-                                      cache_pos=st.pos, query_rows=self.query_rows)
+        logits = self._logits(self.params, self._plan_for(st.tok.shape[0]), st.tok[:, None],
+                              st.cache, cache_pos=st.pos, query_rows=self.query_rows)
         last = logits[:, 0]
         st.logits.copy_(last.float())
         nxt = self._sample(last, generator)
@@ -598,7 +679,7 @@ class ServeEngine:
                                                cache_quant_int8=self.cache_quant_int8)
             self._checked_contracts.add("slot")
         return self.arch.init_cache(n_slots, self.sc.max_len, self.device,
-                                    cache_quant_int8=self.cache_quant_int8)
+                                    cache_quant_int8=self.cache_quant_int8, plan=self._slot_plan)
 
     def check_chunked_prefill_contract(self) -> None:
         """Check the multi-slot scatter + chunk-resume contract once per
@@ -774,9 +855,9 @@ class ServeEngine:
         included."""
         sc = self.sc
         hold = {"advance": go} if go is not None and self.arch.recurrent else {}
-        logits, _ = self.arch.forward(self.params, tokens=st.tok[:, None], cache=st.cache,
-                                      cache_pos=st.pos, block_table=block_table,
-                                      query_rows=self.query_rows, **hold)
+        logits = self._logits(self.params, self._slot_plan, st.tok[:, None], st.cache,
+                              cache_pos=st.pos, block_table=block_table,
+                              query_rows=self.query_rows, **hold)
         nxt = self._sample(logits[:, 0], st.generator)
         live = active & ~st.done
         if go is not None:
@@ -876,16 +957,15 @@ class ServeEngine:
                    else {name: leaf[:n_draft] for name, leaf in st.cache.items()})
         cur, window = st.tok, [st.tok]
         for i in range(k):
-            dlogits, _ = self.arch.forward(self.draft_params, cfg=self.draft_cfg,
-                                           tokens=cur[:, None], cache=d_cache,
-                                           cache_pos=st.pos + i, block_table=block_table,
-                                           query_rows=self.query_rows)
+            dlogits = self._logits(self.draft_params, self._slot_plan, cur[:, None], d_cache,
+                                   cfg=self.draft_cfg, cache_pos=st.pos + i,
+                                   block_table=block_table, query_rows=self.query_rows)
             cur = torch.argmax(dlogits[:, 0], dim=-1)
             window.append(cur)
         window = torch.stack(window, dim=1)  # (n_slots, k+1)
-        logits, _ = self.arch.forward(self.params, tokens=window, cache=st.cache,
-                                      cache_pos=st.pos, block_table=block_table,
-                                      decode_chunk=True, query_rows=self.query_rows)
+        logits = self._logits(self.params, self._slot_plan, window, st.cache, cache_pos=st.pos,
+                              block_table=block_table, decode_chunk=True,
+                              query_rows=self.query_rows)
         verify = torch.argmax(logits, dim=-1)
         emitted, n_emit, last = spec_accept(window, verify, live, st.pos, limit,
                                             sc.eos_token)
@@ -930,8 +1010,10 @@ class ServeEngine:
             slot_t = torch.clamp(x[:1], 0, s.n_slots - 1)
             tokens = x[1 + mb:].view(1, p_len)
             small = self.arch.init_cache(1, self.sc.max_len, self.device,
-                                         cache_quant_int8=self.cache_quant_int8)
-            logits, small = self.arch.forward(self.params, tokens=tokens, cache=small)
+                                         cache_quant_int8=self.cache_quant_int8,
+                                         plan=self._slot_plan)
+            logits = self._logits(self.params, self._slot_plan, tokens, small)
+            small = _local(small)
             first = self._sample(logits[:, -1], s.generator)
             if paged:
                 nb = -(-p_len // self.sc.block_len)
@@ -939,7 +1021,7 @@ class ServeEngine:
                     s.cache, {k: v[:, :, :nb * self.sc.block_len] for k, v in small.items()},
                     x[1:1 + nb])
             else:
-                registry.write_cache_slot(s.cache, small, slot_t)
+                registry.write_cache_slot(_local(s.cache), small, slot_t)
             s.tok.index_copy_(0, slot_t, first)
             s.pos.index_fill_(0, slot_t, p_len)
             s.done.index_fill_(0, slot_t, False)
@@ -970,13 +1052,14 @@ class ServeEngine:
             tokens = x[3 * w:3 * w + w * cb].view(w, cb)
             if paged:
                 bt = x[3 * w + w * cb:].view(w, mb)
-                logits, _ = self.arch.forward(self.params, tokens=tokens, cache=s.cache,
-                                              cache_pos=starts_t, block_table=bt)
+                logits = self._logits(self.params, None, tokens, s.cache, cache_pos=starts_t,
+                                      block_table=bt)
             else:
-                small = registry.gather_cache_slots(s.cache, slots_t)
-                logits, small = self.arch.forward(self.params, tokens=tokens, cache=small,
-                                                  cache_pos=starts_t)
-                registry.write_cache_slots(s.cache, small, slots_t)
+                small = _laid_out_as(registry.gather_cache_slots(_local(s.cache), slots_t),
+                                     s.cache)
+                logits = self._logits(self.params, self._slot_plan, tokens, small,
+                                      cache_pos=starts_t)
+                registry.write_cache_slots(_local(s.cache), _local(small), slots_t)
             last = torch.gather(logits, 1, last_t[:, None, None].expand(
                 w, 1, logits.shape[-1]))[:, 0]
             firsts = self._sample(last, s.generator)

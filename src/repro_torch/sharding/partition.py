@@ -174,3 +174,41 @@ def sharded_abstract_params(
         return empty(leaf.shape, dtype=leaf.dtype, device_mesh=plan.mesh, placements=pl)
 
     return tree_map_with_path_names(one, abstract_params)
+
+
+BLOCK_LEAVES = ("qvalues", "bsvalues")  # column-block serving formats (…, Nb, r, bk, bn)
+
+
+def block_column_spec(values_shape: tuple[int, ...], plan: MeshPlan) -> Spec:
+    """Spec of a column-block serving leaf (int8 ``qvalues`` / ``qscales`` /
+    ``qindices``, the self drafter's ``bsvalues`` / ``bsindices``): its
+    column blocks Nb (dim −4 of the values) over tp when they divide,
+    replicated over dp.  Each device then holds whole output columns with
+    every kept block of their K, so its kernels compute them as one device
+    does."""
+    nb_dim = len(values_shape) - 4
+    tp = plan.tp_axis if values_shape[nb_dim] % plan.tp_size == 0 else None
+    return (None,) * nb_dim + (tp,)
+
+
+def shard_serve_params(params: Any, plan: MeshPlan) -> Any:
+    """A serving tree laid out on the plan's mesh: column-block projection
+    dicts by ``block_column_spec``, every other leaf by ``param_specs``
+    (without its FSDP split when ``plan.serve_stationary``).  Unchanged
+    without a mesh."""
+    if plan.mesh is None:
+        return params
+
+    def walk(node: Any, prefix: str) -> Any:
+        if isinstance(node, dict):
+            blocks = next((k for k in BLOCK_LEAVES if k in node), None)
+            if blocks is not None:
+                spec = block_column_spec(tuple(node[blocks].shape), plan)
+                return {k: NamedSharding(plan.mesh, spec if k != "bias" else ())
+                        .distribute(v) for k, v in node.items()}
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        name = prefix[:-1]
+        return NamedSharding(plan.mesh, _leaf_spec(name, node, plan, plan.serve_stationary)
+                             ).distribute(node)
+
+    return walk(params, "")

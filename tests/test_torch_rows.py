@@ -11,6 +11,10 @@ shapes it is given.  On the card: ``layers.dense_apply`` gives one row the
 same bits at M = 4, 64, 68, 80 and 192 (cuBLAS picks its kernel by M past
 64; mistral-nemo-12b's 5120×1024 and 14336×5120 differed there before the
 chunks).
+
+Meshed serving keeps the contract: on a one-rank (1, 1) mesh
+``dense_apply`` on DTensors gives the plain path's bits (exact; the CPU
+test on a ``gloo`` group, the card's on ``nccl``).
 """
 import pytest
 import torch
@@ -83,3 +87,49 @@ def test_cuda_dense_row_does_not_depend_on_m():
         want = layers.dense_apply({"kernel": w}, x[:4])
         for m in (64, 68, 80, 192):
             assert torch.equal(layers.dense_apply({"kernel": w}, x[:m])[:4], want), (k, n, m)
+
+
+def _one_rank_projection_bits(device: str, backend: str, dtype, m_rows) -> dict:
+    """On a one-rank (1, 1) mesh under ``torch.inference_mode``: the entries
+    of ``dense_apply`` on DTensors (x batch-split, w split as FSDP and TP
+    split it) that differ from the plain path's on the same x, at
+    tinyllama-1.1b's (2048 → 5632), for x of each of ``m_rows`` rows."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((max(m_rows), 1, 2048), generator=g).to(device, dtype)
+    w = (torch.randn((2048, 5632), generator=g) * 2048**-0.5).to(device, dtype)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
+        wd = distribute_tensor(w, mesh, [Shard(0), Shard(1)])
+        out = {}
+        with torch.inference_mode():
+            for m in m_rows:
+                xd = distribute_tensor(x[:m], mesh, [Shard(0), Replicate()])
+                got = layers.dense_apply({"kernel": wd}, xd).full_tensor()
+                out[m] = int((got != layers.dense_apply({"kernel": w}, x[:m])).sum())
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def test_meshed_projection_has_the_plain_bits_on_one_rank():
+    """Exact, fp32 and bf16 on the CPU, where the plain path pads one row to
+    two (a lone row takes another route through ``x @ W`` there)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _one_rank_projection_bits("cpu", "gloo", dtype, (1, 4)) == {1: 0, 4: 0}
+
+
+@pytest.mark.cuda
+def test_cuda_meshed_projection_has_the_plain_bits_on_one_rank():
+    """Exact, bf16 on the card, where the plain path runs 64-row chunks
+    (cuBLAS picks its kernel by M).  Run on the card's machine with
+    the command of the module doc; skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert _one_rank_projection_bits("cuda", "nccl", torch.bfloat16, (1, 4, 68)) == {
+        1: 0, 4: 0, 68: 0}

@@ -269,6 +269,96 @@ def _np_raw(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def check_serve(rank: int, tmp: str, arch_id: str, mesh_dims, compute: str, params_np,
+                prompts, requests, sc: dict, plan_kw: dict | None = None,
+                spec: dict | None = None) -> dict:
+    """The plan-less engine (rank 0) and ``ServeEngine(plan=make_plan(cfg,
+    mesh, 4, **plan_kw))`` on the debug mesh: greedy ``generate(prompts,
+    8)`` and a ``ContinuousScheduler(n_slots=2, segment_len=4)`` run of ``requests``
+    ((prompt, max_new) pairs), and with ``spec`` (``SpecConfig`` fields) a
+    speculative scheduler run too.  Each rank's meshed tokens are held
+    against every other rank's."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.registry import get_arch
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, SpecConfig
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.sharding.mesh import make_plan
+
+    base = get_arch(arch_id, reduced=True)
+    arch = dataclasses.replace(base, cfg=base.cfg.replace(compute_dtype=compute))
+    params = _params(arch, arch.cfg, params_np)
+    plan = make_plan(arch.cfg, make_debug_mesh(*mesh_dims, device_type="cpu"), 4,
+                     **(plan_kw or {}))
+    toks = torch.from_numpy(prompts).long()
+
+    def schedule(eng) -> list:
+        sched = ContinuousScheduler(eng, n_slots=2, segment_len=4, clock=lambda: 0.0)
+        handles = [sched.submit(p, n) for p, n in requests]
+        while sched.has_work():
+            sched.run_segment()
+        return [h.tokens for h in handles]
+
+    out = {"attn_shard": plan.attn_shard}
+    # the plan-less engine on rank 0 only (the ranks compute the same)
+    for name, kw in [("plain", {}), ("meshed", {"plan": plan})][rank > 0:]:
+        eng = ServeEngine(arch, params, ServeConfig(max_len=32, **sc), "cpu", **kw)
+        out[name] = {"generate": eng.generate(toks, 8).numpy(), "continuous": schedule(eng)}
+        if spec is not None:
+            seng = ServeEngine(arch, params, ServeConfig(max_len=32, spec=SpecConfig(**spec),
+                                                         **sc), "cpu", **kw)
+            out[name]["spec"] = schedule(seng)
+    flat = torch.tensor(np.concatenate([out["meshed"]["generate"].reshape(-1)] + [
+        np.asarray(t, np.int64) for k in ("continuous", "spec") for t in out["meshed"].get(k, [])
+    ]))
+    lo, hi = flat.clone(), flat.clone()
+    dist.all_reduce(lo, dist.ReduceOp.MIN)
+    dist.all_reduce(hi, dist.ReduceOp.MAX)
+    out["ranks_agree"] = bool(torch.equal(lo, hi))
+    return out
+
+
+# the dense projection's layouts under serving: (x's placements, w's) on
+# ("data", "model"): column-parallel, row-parallel (a partial sum over
+# model) and an FSDP weight (K split over data, gathered)
+DENSE_LAYOUTS = {"column": ((("s", 0), ("r",)), (("r",), ("s", 1))),
+                 "row": ((("s", 0), ("s", 2)), (("r",), ("s", 0))),
+                 "fsdp": ((("s", 0), ("r",)), (("s", 0), ("s", 1)))}
+
+
+def check_dense_rows(rank: int, tmp: str, x_np, w_np) -> dict:
+    """``layers.dense_apply`` under ``torch.inference_mode`` on the (2, 4)
+    debug mesh, in every layout of ``DENSE_LAYOUTS``: x (8, 1, K) against
+    each pair of its rows alone (each device then holds 4 rows, or 1).
+    {layout: number of entries of the pairs' rows that differ from the
+    same rows of the 8}."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers
+
+    mesh = make_debug_mesh(2, 4, device_type="cpu")
+
+    def lay(spec):
+        return [Shard(q[1]) if q[0] == "s" else Replicate() for q in spec]
+
+    x, w = torch.from_numpy(x_np), torch.from_numpy(w_np)
+    out = {}
+    for name, (xs, ws) in DENSE_LAYOUTS.items():
+        wd = distribute_tensor(w, mesh, lay(ws))
+        with torch.inference_mode():
+            def y(rows):
+                return layers.dense_apply({"kernel": wd}, distribute_tensor(
+                    rows, mesh, lay(xs))).full_tensor()
+
+            whole = y(x)
+            pairs = torch.cat([y(x[i::4]) for i in range(4)])
+            want = torch.cat([whole[i::4] for i in range(4)])
+        out[name] = int((pairs != want).sum())
+    return out
+
+
 def check_all(rank: int, tmp: str, checks: dict) -> dict:
     """Several checks in one group, in order: {name: (check, inputs)}."""
     return {name: globals()[check](rank, os.path.join(tmp, name), **inputs)

@@ -5,8 +5,9 @@
     python3 tools/mesh_phase.py [--dry-run-all] [--jobs N] [--out FILE]
 
 The mesh phase (``chip_smoke.phase_mesh``): the sharded train step on a
-one-rank NCCL mesh against the plan-less step, bit for bit, and three
-dry-run cells; one JSON line, with the card's name and power limit.  Then
+one-rank NCCL mesh against the plan-less step, bit for bit, the main
+path's engine on the same mesh against the plain engine, and three dry-run
+cells; one JSON line, with the card's name and power limit.  Then
 ``python -m repro_torch.launch.dryrun --all --mesh both --jobs N --out
 FILE``: every (arch × shape × mesh) cell on fake groups of 256 and 512
 ranks, N cells at once (the host's CPU does this work; nothing runs on the
