@@ -28,9 +28,12 @@ greedy) turns on speculative decoding with the drafter ``--spec-draft``
 "truncate:N": the first N layers) and gives max_len ``spec_k`` positions of
 headroom; each segment's line then says the mean accepted tokens per
 round, and the summary gives the acceptance histogram.  ``--trace``
-(poisson) records the serving trace (``serve/trace.py``: host counters
-priced through the analytic roofline) and ends with its totals and the
-photonic model's energy per token; ``--autotune`` (poisson) picks
+(poisson) records the serving trace (``serve/trace.py``: phase records
+priced through the analytic roofline, and spans of the serving loop) and
+ends with its totals, the photonic model's energy per token, and each
+span name's count, total and self milliseconds (host clock; self = less
+its children's), the queue wait's p50 and p90 and the blocking
+device→host reads by kind; ``--autotune`` (poisson) picks
 segment_len / prefill_chunk / block_len / spec_k with the analytic
 autotuner (``roofline/autotune.py``, priced on the H100's peak rates)
 before serving, and with ``--trace`` on a speculative run re-ranks with the
@@ -177,8 +180,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "retires to the queue and readmits)")
     ap.add_argument("--trace", action="store_true",
                     help="record per-segment phase traces (host-side counters "
-                         "priced through the analytic roofline) and print an "
-                         "energy-per-token report at the end (poisson)")
+                         "priced through the analytic roofline) and the serving "
+                         "loop's spans; print an energy-per-token report and each "
+                         "span's count, total and self time at the end (poisson)")
     ap.add_argument("--autotune", action="store_true",
                     help="pick segment_len/prefill_chunk/block_len/spec_k from "
                          "the analytic autotuner before serving (poisson; "
@@ -450,6 +454,13 @@ def report_poisson(eng: ServeEngine, useful: int, total: float, sched: Continuou
                      r["j_per_token"], r["trace_energy_j"], r["tok_per_s_per_w"],
                      r["power_w"])
         out["trace"] = sched.trace.summary()
+        spans = sched.trace.span_summary()
+        for name, row in spans["spans"].items():
+            log.info("span %-18s n=%-6d total %10.2f ms   self %10.2f ms", name, row["count"],
+                     row["total_ms"], row["self_ms"])
+        log.info("queue wait p50=%.2f ms p90=%.2f ms; blocking reads %s", spans["queue_ms"]["p50"],
+                 spans["queue_ms"]["p90"], spans["counts"])
+        out["spans"] = {k: spans[k] for k in ("spans", "queue_ms", "counts")}
     return out
 
 

@@ -118,6 +118,13 @@ state belongs to the engine, one per (n_slots, n_blocks): a second
 scheduler of the same geometry takes it over (with its graphs) and the
 first may not run again.
 
+Under a traced scheduler (``SlotState.trace``, see ``serve/trace.py``)
+the prefill calls (``prefill_slot``, ``prefill_slots``) and the segment
+calls (``slot_segment``, ``spec_segment``) are the ones that record CUDA
+events: one before the call's upload and one after its output's copy, on
+the current stream, read after the run; each is a span, and so is each
+blocking read of a while segment's stop flag.  Untraced, none of it runs.
+
 Speculative decoding (``ServeConfig.spec = SpecConfig(k, draft=…)``, the
 reference's): each segment step is a round that drafts k tokens with a
 drafter derived from the served weights, verifies them in one
@@ -234,8 +241,9 @@ class ServeConfig:
     # run the scheduler's allocator / table / commitment invariant checks
     # at the end of every segment (host dicts only, never the device)
     debug_invariants: bool = False
-    # the continuous scheduler owns a ``serve.trace.TraceRecorder`` (host
-    # counters priced through ``roofline.analytic``); False = no recorder
+    # the continuous scheduler owns a ``serve.trace.TraceRecorder`` (phase
+    # records priced through ``roofline.analytic``, and the serving loop's
+    # spans); False = no recorder
     trace: bool = False
 
 
@@ -320,7 +328,9 @@ class SlotState:
     ``pos`` (n_slots,) int64 and ``done`` (n_slots,) bool, and the segment
     policy buffer ``policy`` = [active, limit, stop_on_free, block table],
     int64, uploaded before each segment.  ``generator`` draws temperature
-    samples (None when greedy).  ``programs`` holds the captured graphs."""
+    samples (None when greedy).  ``programs`` holds the captured graphs.
+    ``trace``: the owning scheduler's recorder, into which every slot
+    program call records its span (None: tracing off)."""
 
     def __init__(self, cache: dict, n_slots: int, max_blocks: int, device,
                  generator: torch.Generator | None):
@@ -333,6 +343,8 @@ class SlotState:
         self.generator = generator
         self.programs: dict[tuple, _Program] = {}
         self.owner: object | None = None
+        # the owner's ``serve.trace.TraceRecorder`` (None: tracing off)
+        self.trace = None
 
     @property
     def active(self) -> torch.Tensor:
@@ -744,11 +756,15 @@ class ServeEngine:
 
     def _run_slot(self, st: SlotState, name: str, shape: tuple, inp: np.ndarray,
                   body: Callable[[SlotState, torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        """Run slot program ``name`` at ``shape`` with host input ``inp``:
+        """Run prefill program ``name`` at ``shape`` with host input ``inp``:
         eagerly on the CPU and under loop="python", else replayed from its
         graph (captured at the first call at this shape, after a warm-up
         on a scratch copy of the state).  Returns the program's output, a
-        fresh tensor (a replay overwrites the graph's)."""
+        fresh tensor (a replay overwrites the graph's).  Traced: one
+        ``serve.prefill`` span, its CUDA events before the upload and after
+        the output's copy."""
+        tr = st.trace
+        sp = tr.open("serve.prefill", timed=self.device.type == "cuda") if tr is not None else None
         self.call_counts[name] += 1
         prog = st.programs.get((name, shape))
         if prog is None:
@@ -758,15 +774,20 @@ class ServeEngine:
         if not self.graphs:
             if self.device.type == "cuda":
                 self.slot_eager_runs += 1
-            return body(st, prog.inp)
-        if prog.graph is None:
-            warm = torch.Generator(device=self.device) if st.generator is not None else None
-            body(st.scratch(warm), prog.inp)
-            out = []
-            prog.graph = self._capture_slot(name, st, lambda: out.append(body(st, prog.inp)))
-            prog.out = out[0]
-        self._replay(prog.graph)
-        return prog.out.clone()
+            out = body(st, prog.inp)
+        else:
+            if prog.graph is None:
+                warm = torch.Generator(device=self.device) if st.generator is not None else None
+                body(st.scratch(warm), prog.inp)
+                made = []
+                prog.graph = self._capture_slot(name, st,
+                                                lambda: made.append(body(st, prog.inp)))
+                prog.out = made[0]
+            self._replay(prog.graph)
+            out = prog.out.clone()
+        if sp is not None:
+            tr.close(sp, replays=int(self.graphs))
+        return out
 
     def _capture_slot(self, name: str, st: SlotState, fn: Callable[[], None]) -> _Graph:
         """``fn`` captured into the slot graphs' shared pool, the device
@@ -797,8 +818,9 @@ class ServeEngine:
         after it, it reads each round's stop flag while the next round
         runs, so the card is never left waiting on the host, and runs no
         more rounds once the flag is set (one round at most runs past a
-        stop found this way).  Returns the columns of the rounds run, a
-        fresh tensor."""
+        stop found this way).  Each such read is a ``serve.stop_check``
+        span when traced.  Returns the columns of the rounds run, a fresh
+        tensor."""
         self.call_counts[name] += 1
         prog = st.programs.get((name, ()))
         if prog is None:
@@ -825,9 +847,16 @@ class ServeEngine:
 
             def run(n: int) -> None:
                 self._replay(prog.graph, n)
+        tr = st.trace
         ran = min(first_check, rounds) if first_check else rounds
         run(ran)
-        if ran < rounds and bool(self._running(st)):
+        going = False
+        if ran < rounds:
+            sp = tr.open("serve.stop_check") if tr is not None else None
+            going = bool(self._running(st))
+            if sp is not None:
+                tr.close(sp)
+        if ran < rounds and going:
             cuda = self.device.type == "cuda"
             flag = torch.empty((), dtype=torch.bool, pin_memory=cuda)
             read = torch.cuda.Event() if cuda else None
@@ -837,9 +866,13 @@ class ServeEngine:
                     read.record()
                 run(1)
                 ran += 1
+                sp = tr.open("serve.stop_check") if tr is not None else None
                 if read is not None:
                     read.synchronize()
-                if not bool(flag):
+                going = bool(flag)
+                if sp is not None:
+                    tr.close(sp)
+                if not going:
                     break
         return prog.out[:, :ran].clone()
 
@@ -895,8 +928,12 @@ class ServeEngine:
         bound on its tokens (``ContinuousScheduler._while_steps``), so no
         budget stops it before round ceil(n_steps / width[0]), and the host
         first reads its stop flag there (an eos may stop it sooner: with
-        an eos token, from the first round)."""
+        an eos token, from the first round).  Traced: one ``serve.decode``
+        span, its CUDA events before the policy's upload and after the
+        output's copy."""
         name = self._segment_name(base, mode)
+        tr = st.trace
+        sp = tr.open("serve.decode", timed=self.device.type == "cuda") if tr is not None else None
         self._upload_policy(st, active, limit, stop_on_free, block_table)
         paged = self.sc.kv_layout == "paged"
 
@@ -910,8 +947,12 @@ class ServeEngine:
         first = 0
         if mode == "while":
             first = 1 if self.sc.eos_token >= 0 else -(-n_steps // (width[0] if width else 1))
-        return self._run_rounds(st, name, min(n_steps, self.sc.max_len),
-                                (st.n_slots, self.sc.max_len, *width), round_, first)
+        out = self._run_rounds(st, name, min(n_steps, self.sc.max_len),
+                               (st.n_slots, self.sc.max_len, *width), round_, first)
+        if sp is not None:
+            rounds = out.shape[1]
+            tr.close(sp, rounds=rounds, replays=rounds if self.graphs else 0)
+        return out
 
     def _segment_name(self, base: str, mode: str) -> str:
         if mode not in ("scan", "while"):

@@ -62,10 +62,18 @@ Multi-tenant admission (``policy=TenantPolicy(...)``, ``serve/policy.py``):
 ``Overloaded``, token bucket → ``RateLimited``), admission takes its DRR
 pick instead of the FIFO head, classes cap chunks and token budgets, the
 victim order ranks by class first, and ``run_segment`` steps its brownout
-controller once per segment.  With ``ServeConfig.trace`` the scheduler owns
-a ``serve.trace.TraceRecorder`` fed at every launch site; without it each
-site is one ``is not None`` check.  All of it reads host state only
+controller once per segment.  All of it reads host state only
 (``Request.tokens``, ``slots``, ``queue``): no device sync is added.
+
+With ``ServeConfig.trace`` the scheduler owns a ``serve.trace.TraceRecorder``,
+fed at every launch site and handed to its slot state, through which the
+engine records its calls: spans of each segment, admit round, prefill and
+decode call, stop-flag read, download and retirement and of each request's
+wait in the queue, on the clock ``torch.profiler`` stamps its events with,
+and on the card a CUDA event before and after each engine call.  They add
+no device sync and no host read of the device; the events are read after
+the run (``TraceRecorder.span_summary``).  Without it ``trace`` is ``None``
+and each site is one ``is not None`` check.
 
 Greedy outputs equal ``ServeEngine.generate``'s at B = 1 bit for bit, under
 either layout and either admission path, preempted or not, speculating or
@@ -388,6 +396,7 @@ class ContinuousScheduler:
             from repro_torch.serve.trace import TraceRecorder
 
             self.trace = TraceRecorder(engine)
+        self.state.trace = self.trace  # the engine's calls record into it
 
     # the device state, as the reference's scheduler names it
     @property
@@ -536,6 +545,8 @@ class ContinuousScheduler:
         req.preempts += 1
         req.preempt_t = self.clock()
         self.queue.appendleft(req)
+        if self.trace is not None:
+            self.trace.enqueue(req.rid)
         self.stats["preemptions"] += 1
         by_cls = self.stats["preemptions_by_class"]
         by_cls[req.priority] = by_cls.get(req.priority, 0) + 1
@@ -683,6 +694,8 @@ class ContinuousScheduler:
         req.finish_t = now
         req._swap, req._swap_nb = None, 0  # drop any host KV payload
         self.stats["cancelled" if state == CANCELLED else "expired"] += 1
+        if self.trace is not None:
+            self.trace.left_queue(req.rid)
         if self.policy is not None and state == EXPIRED:
             # an expiry IS an SLO observation: a request that died before
             # its first token feeds its waiting age to the monitor as the
@@ -869,16 +882,27 @@ class ContinuousScheduler:
         )
         self._next_rid += 1
         self.queue.append(req)
+        if self.trace is not None:
+            self.trace.enqueue(req.rid)
         return req
 
     # --------------------------------------------------------------- admit
 
     def _admit(self) -> int:
         """One admit round (timed): batched/chunked admission when
-        ``prefill_chunk`` is set, else one request per launch."""
+        ``prefill_chunk`` is set, else one request per launch.  Traced: a
+        ``serve.admit`` span with the chunks and real tokens its prefill
+        calls carried."""
         t0 = self.clock()
+        tr = self.trace
+        if tr is not None:
+            sp, first = tr.open("serve.admit"), len(tr.spans)
         n = (self._admit_chunked() if self.chunked
              else self._admit_per_request())
+        if tr is not None:
+            calls = [s for s in tr.spans[first:] if s.name == "serve.prefill"]
+            tr.close(sp, chunks=sum(len(s.rids) for s in calls),
+                     real_tokens=sum(s.attrs.get("real_tokens", 0) for s in calls))
         self.stats["admit_time_s"] += self.clock() - t0
         self.stats["admit_rounds"] += 1
         return n
@@ -944,6 +968,8 @@ class ContinuousScheduler:
         if len(req.slot_history) > 1:
             self.stats["readmits"] += 1
         self.stats["admissions_per_slot"][slot] += 1
+        if self.trace is not None:
+            self.trace.claimed(req.rid)
         return req
 
     def _claim_free_slots(self) -> None:
@@ -1111,12 +1137,19 @@ class ContinuousScheduler:
             hist = self.stats["prefill_batch_hist"]
             hist[len(rows)] = hist.get(len(rows), 0) + 1
             if self.trace is not None:
+                real_tokens = sum(r[2] for r in rows)
                 self.trace.record_prefill(
                     self.stats["segments"], width, bucket,
-                    sum(r[2] for r in rows), [r[1] for r in rows])
+                    real_tokens, [r[1] for r in rows])
+                self.trace.annotate("serve.prefill", [self.slots[r[0]].rid for r in rows],
+                                    width=width, bucket=bucket, real_tokens=real_tokens)
         # the ONLY admit-round download: every launch's first tokens at once
+        tr = self.trace if launched else None
+        sp = tr.open("serve.first_tokens") if tr is not None else None
         firsts_h = (torch.cat([f for _, f in launched]).cpu().numpy()
                     if launched else np.zeros(0, np.int64))
+        if sp is not None:
+            tr.close(sp)
         now = self.clock()
         n_live = 0
         offset = 0
@@ -1210,6 +1243,8 @@ class ContinuousScheduler:
                 if self.trace is not None:
                     self.trace.record_prefill(self.stats["segments"], 1,
                                               len(prefix), len(prefix), [0])
+                    self.trace.annotate("serve.prefill", [req.rid], width=1,
+                                        bucket=len(prefix), real_tokens=len(prefix))
                 resumed = bool(req.tokens)
                 pending.append((req, slot, first, resumed))
                 if resumed:
@@ -1234,7 +1269,11 @@ class ContinuousScheduler:
                 self.limit[slot] = req.prompt_len + req.max_new_tokens - 1
         if not pending:
             return 0
+        tr = self.trace
+        sp = tr.open("serve.first_tokens") if tr is not None else None
         firsts = torch.cat([f for _, _, f, _ in pending]).cpu().numpy()
+        if sp is not None:
+            tr.close(sp)
         now = self.clock()
         for (req, slot, _, resumed), first in zip(pending, firsts):
             if resumed:
@@ -1333,8 +1372,15 @@ class ContinuousScheduler:
 
         With ``ServeConfig.debug_invariants`` the allocator/table/commitment
         invariants are checked at the end of EVERY segment, so a violation
-        fails at the segment that caused it, not at retire.
+        fails at the segment that caused it, not at retire.  Traced: one
+        ``serve.segment`` span around all of it.
         """
+        if self.trace is None:
+            return self._run_segment()
+        with self.trace.segment_span(self.stats["segments"]):
+            return self._run_segment()
+
+    def _run_segment(self) -> int:
         if self.state.owner is not self:
             raise RuntimeError("this scheduler's slot state was taken over by "
                                "a later scheduler of the same geometry")
@@ -1356,11 +1402,19 @@ class ContinuousScheduler:
         n_steps = (self._while_steps(pending) if self.segment_mode == "while"
                    else self.segment_len)
         segment = eng.spec_segment if self.spec is not None else eng.slot_segment
+        tr = self.trace
+        if tr is not None:
+            rids = [r.rid for s, r in enumerate(self.slots) if r is not None and self.active[s]]
         toks = segment(
             self.state, n_steps, self.segment_mode, self.active,
             self.limit, stop_on_free=pending,
             block_table=self.block_table if self.paged else None)
+        sp = tr.open("serve.download") if tr is not None else None
         toks = toks.cpu().numpy()  # the only per-segment download
+        if sp is not None:
+            tr.close(sp)
+            sp = tr.open("serve.retire")
+            streamed0, retired0 = sum(self.stats["tenant_tokens"].values()), self.stats["retired"]
         ran = toks.shape[1]  # a while segment stops within a check of its stop
         if ran < self.segment_len:  # the steps the segment never took
             pad = [(0, 0), (0, self.segment_len - ran)] + [(0, 0)] * (toks.ndim - 2)
@@ -1393,6 +1447,7 @@ class ContinuousScheduler:
             else:
                 self.trace.record_decode(self.stats["segments"], self.n_slots,
                                          n_exec, int(live_counts.sum()))
+            self.trace.annotate("serve.decode", rids, live_slot_steps=int(live_step.sum()))
         if self.segment_mode == "while":
             self.stats["steps_predicated"] += ran - n_exec
         self.stats["steps_total"] += n_exec
@@ -1440,6 +1495,9 @@ class ContinuousScheduler:
                                                 now - req.submit_t)
                 self._vacate_slot(slot)
                 self.stats["retired"] += 1
+        if sp is not None:
+            tr.close(sp, tokens=sum(self.stats["tenant_tokens"].values()) - streamed0,
+                     retired=self.stats["retired"] - retired0)
         if debug:
             self.check_block_invariants()
         return sum(r is not None for r in self.slots)

@@ -1,19 +1,54 @@
-"""Per-segment serving trace: cheap host-side counters + analytic pricing.
+"""Serving trace: per-launch phase records priced by analytic models, and
+spans of the serving loop on the profiler's clock.
 
-The port of ``repro.serve.trace``, whole; it reads the port's engine
-(``engine.cache_quant_int8`` where the reference reads
-``engine.plan.cache_quant_int8``) and prices through the port's
+The phase records are the port of ``repro.serve.trace``, whole; they read
+the port's engine (``engine.cache_quant_int8`` where the reference reads
+``engine.plan.cache_quant_int8``) and price through the port's
 ``roofline.analytic`` and ``photonic`` packages, so the same events give
-the same FLOPs, bytes and Joules in both packages.  No hook touches the
-device: every count is read from host state the scheduler already holds.
+the same FLOPs, bytes and Joules in both packages.  Their counts come from
+host state the scheduler already holds.
 
 Opt-in via ``ServeConfig.trace=True``.  The scheduler then owns a
-:class:`TraceRecorder` and calls its ``record_*`` hooks from the launch
-sites (prefill dispatch, decode/spec segment, preemption/swap).  With
-tracing off the scheduler's ``trace`` attribute is ``None`` and every hook
-site is a single ``is not None`` check — the zero-overhead path.
+:class:`TraceRecorder`, calls its ``record_*`` hooks from the launch sites
+(prefill dispatch, decode/spec segment, preemption/swap) and hands it to
+its slot state (``SlotState.trace``), through which the engine records the
+spans of its program calls.  With tracing off the scheduler's ``trace``
+attribute and the slot state's are ``None``, and every hook site is a
+single ``is not None`` check: no span, event or list is made.
 
-Conventions (shared with roofline/analytic.py's step-cost models):
+Spans (``Span``: name, start and end on :func:`now_ns`, the id of the span
+open around it, the request ids it served, attributes), kept in memory
+(``TraceRecorder.spans``) and read after the run:
+
+    serve.segment       one ``ContinuousScheduler.run_segment`` (the root);
+                        its blocking device→host reads by kind and graph
+                        replays
+    serve.admit         one admit round: chunks and real tokens prefilled
+    serve.prefill       one ``prefill_slot`` / ``prefill_slots`` call (the
+                        engine): width, bucket, real tokens, rids
+    serve.first_tokens  the round's one download of first tokens
+    serve.decode        one ``slot_segment`` / ``spec_segment`` call (the
+                        engine): rounds run, live slot-steps, rids of the
+                        active slots
+    serve.stop_check    one blocking read of a while segment's stop flag
+    serve.download      the segment's token-block download
+    serve.retire        streaming the block and retiring finished requests:
+                        tokens streamed, requests retired
+    serve.queue         a request from its submission (or preemption) to
+                        the claim of its slot: a root span of its own
+
+On the card each engine call also records a CUDA event (``enable_timing``,
+current stream) before its input upload and one after its last replay;
+they add no synchronize and are read only by :meth:`TraceRecorder.resolve`,
+after the run, for the calls' device milliseconds and the device time
+between consecutive decode calls.  :func:`now_ns` is the base of
+``torch.profiler``'s host and device stamps (Unix-epoch nanoseconds), so
+a profiled slice's idle gaps can be laid over the spans.  Spans and events
+grow with the run: a long-lived server clears them with
+:meth:`TraceRecorder.clear_spans`.
+
+Conventions of the phase records (shared with roofline/analytic.py's
+step-cost models):
 
 * ``tokens`` counts USEFUL tokens — real prompt tokens prefilled, live
   decode emissions (replayed tokens included: the device computed them).
@@ -34,8 +69,13 @@ photonic model's analytic output, not a reading of the card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import time
 from typing import Sequence
+
+import torch
 
 from repro_torch.roofline.analytic import (
     StepCost,
@@ -45,6 +85,46 @@ from repro_torch.roofline.analytic import (
 )
 
 PHASES = ("prefill", "decode", "spec", "preempt", "brownout")
+# the spans that are one blocking device→host read each, by the counter's name
+READS = {"serve.stop_check": "stop_checks", "serve.download": "token_downloads",
+         "serve.first_tokens": "first_token_downloads"}
+_EPOCH_NS = time.time_ns() - time.perf_counter_ns()  # fixed once, at import
+
+
+def now_ns() -> int:
+    """The spans' clock: ``time.perf_counter_ns()`` moved to Unix-epoch
+    nanoseconds by an offset fixed at import, the base of the host and
+    device events ``torch.profiler`` returns (``kineto_results.events()``)."""
+    return time.perf_counter_ns() + _EPOCH_NS
+
+
+@dataclasses.dataclass
+class Span:
+    """One interval of the serving loop on :func:`now_ns`: ``parent`` is the
+    ``sid`` of the span open around it (None for a root), ``rids`` the
+    requests it served, ``events`` the [start, end] CUDA events of an
+    engine call on the card."""
+
+    sid: int
+    name: str
+    start_ns: int
+    parent: int | None
+    end_ns: int = 0
+    rids: tuple[int, ...] = ()
+    attrs: dict = dataclasses.field(default_factory=dict)
+    events: list | None = None
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+def _nearest_rank(values: list[float], q: float) -> float:
+    """The smallest value with at least ``q`` of them at or below it."""
+    if not values:
+        return math.nan
+    s = sorted(values)
+    return s[max(math.ceil(q * len(s)) - 1, 0)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +176,14 @@ class TraceRecorder:
         # memoize the per-step analytic price
         self._decode_memo: dict[int, StepCost] = {}
         self._spec_memo: dict[int, StepCost] = {}
+        # spans (module docstring), the spans still open (innermost last),
+        # when each queued request (re)entered the queue, and the counters
+        # kept at the spans' boundaries
+        self.spans: list[Span] = []
+        self._open: list[Span] = []
+        self._queued: dict[int, int] = {}
+        self._next_sid = 0
+        self.counts = dict.fromkeys((*READS.values(), "graph_replays"), 0)
 
     # -- pricing ----------------------------------------------------------
     def _decode_cost(self, batch: int) -> StepCost:
@@ -187,6 +275,141 @@ class TraceRecorder:
     def note_tenant_tokens(self, tenant: str, n: int = 1) -> None:
         """One (or ``n``) live emissions billed to ``tenant``."""
         self.tenant_tokens[tenant] = self.tenant_tokens.get(tenant, 0) + n
+
+    # -- spans (called by ContinuousScheduler and ServeEngine) -------------
+    def open(self, name: str, timed: bool = False, **attrs) -> Span:
+        """Start a span inside the innermost open one; ``timed`` (an engine
+        call on the card) records its start CUDA event now."""
+        sp = Span(self._next_sid, name, now_ns(), self._open[-1].sid if self._open else None,
+                  attrs=attrs)
+        self._next_sid += 1
+        if timed:
+            sp.events = [torch.cuda.Event(enable_timing=True)]
+            sp.events[0].record()
+        self.spans.append(sp)
+        self._open.append(sp)
+        return sp
+
+    def close(self, sp: Span, **attrs) -> None:
+        """End ``sp`` (its end CUDA event first, if timed) and count what it
+        stands for: a blocking read (``READS``), ``replays`` graph replays."""
+        if sp.events is not None:
+            sp.events.append(torch.cuda.Event(enable_timing=True))
+            sp.events[1].record()
+        sp.end_ns = now_ns()
+        sp.attrs.update(attrs)
+        while self._open and self._open.pop() is not sp:
+            pass  # a span an exception left open ends with its parent
+        if sp.name in READS:
+            self.counts[READS[sp.name]] += 1
+        self.counts["graph_replays"] += attrs.get("replays", 0)
+
+    @contextlib.contextmanager
+    def segment_span(self, segment: int):
+        """The root span of one ``run_segment``, with the blocking reads by
+        kind and the graph replays it made."""
+        sp = self.open("serve.segment", segment=segment)
+        before = dict(self.counts)
+        try:
+            yield sp
+        finally:
+            self.close(sp, **{k: v - before[k] for k, v in self.counts.items()})
+
+    def annotate(self, name: str, rids: Sequence[int] | None = None, **attrs) -> None:
+        """What the caller knows after an engine call, onto the latest span
+        of ``name`` (the call's)."""
+        for sp in reversed(self.spans):
+            if sp.name == name:
+                if rids is not None:
+                    sp.rids = tuple(int(r) for r in rids)
+                sp.attrs.update(attrs)
+                return
+
+    def enqueue(self, rid: int) -> None:
+        """Request ``rid`` entered the queue (submitted, or preempted)."""
+        self._queued[rid] = now_ns()
+
+    def left_queue(self, rid: int) -> None:
+        """Request ``rid`` retired without a slot (cancelled or expired
+        while queued): no span."""
+        self._queued.pop(rid, None)
+
+    def claimed(self, rid: int) -> None:
+        """Request ``rid`` claimed a slot: its ``serve.queue`` span, a root."""
+        start = self._queued.pop(rid, None)
+        if start is not None:
+            self.spans.append(Span(self._next_sid, "serve.queue", start, None, now_ns(), (rid,)))
+            self._next_sid += 1
+
+    def clear_spans(self) -> None:
+        """Drop the spans and counters so far (between segments: a measured
+        window starts here); requests already queued keep their stamps."""
+        self.spans = []
+        self.counts = dict.fromkeys(self.counts, 0)
+
+    def resolve(self) -> None:
+        """After the run: each timed span's device milliseconds
+        (``device_ms``), and on each decode span the device milliseconds
+        from the previous decode call's end event to its start event
+        (``gap_ms``).  Waits for the last event."""
+        timed = [s for s in self.spans if s.events is not None and len(s.events) == 2]
+        if not timed:
+            return
+        timed[-1].events[1].synchronize()
+        prev = None
+        for sp in timed:
+            sp.attrs["device_ms"] = sp.events[0].elapsed_time(sp.events[1])
+            if sp.name == "serve.decode":
+                if prev is not None:
+                    sp.attrs["gap_ms"] = prev.events[1].elapsed_time(sp.events[0])
+                prev = sp
+
+    def span_summary(self) -> dict:
+        """The spans read out (after :meth:`resolve`): per name the count,
+        host total and self milliseconds (duration less its children's);
+        the decode calls' rounds, live slot-steps, device ms and stall (Σ
+        over consecutive calls of the device gap between them × the
+        requests active in both; device values None off the card); the
+        prefill calls' real tokens and device ms; ``serve.queue``'s p50 and
+        p90 ms; the counters; and every span but ``serve.queue`` as (start
+        ns, end ns, name), the host's nesting to lay a profile over."""
+        self.resolve()
+        child_ms: dict[int, float] = {}
+        for sp in self.spans:
+            if sp.parent is not None:
+                child_ms[sp.parent] = child_ms.get(sp.parent, 0.0) + sp.ms
+        names: dict[str, dict] = {}
+        for sp in self.spans:
+            row = names.setdefault(sp.name, {"count": 0, "total_ms": 0.0, "self_ms": 0.0})
+            row["count"] += 1
+            row["total_ms"] += sp.ms
+            row["self_ms"] += sp.ms - child_ms.get(sp.sid, 0.0)
+
+        def device_ms(spans):
+            return (sum(s.attrs["device_ms"] for s in spans)
+                    if spans and all("device_ms" in s.attrs for s in spans) else None)
+
+        dec = [s for s in self.spans if s.name == "serve.decode"]
+        pre = [s for s in self.spans if s.name == "serve.prefill"]
+        pairs = [(a, b) for a, b in zip(dec, dec[1:]) if "gap_ms" in b.attrs]
+        queue = [s.ms for s in self.spans if s.name == "serve.queue"]
+        return {
+            "spans": names,
+            "decode": {
+                "calls": len(dec), "rounds": sum(s.attrs.get("rounds", 0) for s in dec),
+                "live_slot_steps": sum(s.attrs.get("live_slot_steps", 0) for s in dec),
+                "device_ms": device_ms(dec),
+                "stall_ms": (sum(b.attrs["gap_ms"] * len(set(a.rids) & set(b.rids))
+                                 for a, b in pairs) if pairs else None),
+            },
+            "prefill": {"calls": len(pre),
+                        "real_tokens": sum(s.attrs.get("real_tokens", 0) for s in pre),
+                        "device_ms": device_ms(pre)},
+            "queue_ms": {"p50": _nearest_rank(queue, 0.5), "p90": _nearest_rank(queue, 0.9)},
+            "counts": dict(self.counts),
+            "intervals": [(s.start_ns, s.end_ns, s.name) for s in self.spans
+                          if s.name != "serve.queue"],
+        }
 
     # -- views ------------------------------------------------------------
     @property
