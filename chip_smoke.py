@@ -22,11 +22,12 @@ Phases, in order; any failure exits non-zero before the last line:
      (sparsity 0.5), greedy batch 4 × prompt 64 × 32 new tokens through
      ``repro_torch.launch.serve``.  The launch counters are zeroed just
      before and read just after, with both int8 kernels' route counters
-     (every prefill and decode launch, bf16 x, on the tensor cores); tokens must be in
-     range and repeat on a second run.  Then prefill ms, decode ms/token and
-     tok/s (host clock, medians of 7), and the card's busy time while
-     generating 9 tokens and in one prefill (torch.profiler) against the
-     same calls' wall time.
+     (every prefill and decode launch, bf16 x, on the tensor cores), and a
+     decode-step replay must launch decode attention's kernel once per
+     layer (22); tokens must be in range and repeat on a second run.  Then
+     prefill ms, decode ms/token and tok/s (host clock, medians of 7),
+     and the card's busy time while generating 9 tokens and in one
+     prefill (torch.profiler) against the same calls' wall time.
   5. reference: the first two layers of the served model, fp32 compute,
      prefill + 2 decode steps on the card (kernels; fp32 x takes the int8
      tiled matmul on the CUDA cores at every M) against the CPU (plain
@@ -69,7 +70,16 @@ Phases, in order; any failure exits non-zero before the last line:
      row at M = 1, 4, 7 the bits of the same row at M = 8, 12, 20 and 256,
      and the dense bf16 path (``layers.dense_apply``, rows padded to 64)
      at M = 8, 12, 20, or the run fails; the dense path's 256-row prefill
-     and cuBLAS x @ W unpadded are reported beside them.  Then the
+     and cuBLAS x @ W unpadded are reported beside them; and decode
+     attention's kernel at both benchmark cells' shapes (``DA_CELLS``):
+     each row of verify windows of 2, 5 and 16 rows ≡ the decode step at
+     its position, bit for bit.  Then decode attention alone
+     (``phase_decode_attention``): the kernel at both cells' decode shapes
+     against the plain version on fp32-widened operands (one bf16 ulp), and
+     its device ms for a step's launches (every layer's cache, a CUDA
+     graph) beside its bytes bound (the live K/V, q and out at 3.35 TB/s),
+     the plain version's ms and ``F.scaled_dot_product_attention``'s (a
+     yardstick the port never calls).  Then the
      serving modes at full width (``phase_serving_modes``: batch 4, prompt
      64, the served int8 weights and the dense bf16 weights of the same
      seed): a verify window at k = 4 (20 rows, ``decode_chunk``) ≡ 5
@@ -154,8 +164,9 @@ Phases, in order; any failure exits non-zero before the last line:
      (scan / while × dense / paged), ``self`` (the seed's raw weights pruned
      to 0.75 and kept block-sparse in bf16, on block_sparse_matmul) and
      ``truncate:22`` (the whole model, whose drafts must all be accepted
-     but at budget edges, at k = 4 and at k = 16: windows of 17 rows, the
-     queries padded to 32, 68 rows a window; k = 16 also on the seed's
+     but at budget edges, at k = 4 and at k = 16: windows of 17 rows, 68
+     rows a window (decode attention's kernel takes the 17 query rows
+     unpadded); k = 16 also on the seed's
      unquantized bf16 weights, whose 68-row windows leave the dense path's
      64-row floor) — and k = 2 ``truncate:1``
      with int8 KV, paged
@@ -163,7 +174,8 @@ Phases, in order; any failure exits non-zero before the last line:
      admission, each request equal to its own ``generate`` at B = 1; the
      counters zeroed just before each run and read just after (the int8
      pair, and block_sparse_matmul for ``self``, launched, every launch on
-     the tensor cores); each spec program one graph of one round per
+     the tensor cores; decode attention's kernel launched in every run);
+     each spec program one graph of one round per
      geometry, none run eagerly, with its launches per round.  Then
      block_sparse_matmul's time for one draft step (154 projections, M = 4,
      bf16 values) beside its plain version, x @ W and the bound; and 32
@@ -198,7 +210,8 @@ Phases, in order; any failure exits non-zero before the last line:
      ``generate`` and read just after.  mistral-nemo-12b at full width and
      depth (40 layers, ~12.2 B params), int8 block-sparse 0.5: the int8
      pair at 40·7 + 1 = 281 launches per prefill and per decode step, all
-     on the tensor cores, each of its six projection shapes held to its
+     on the tensor cores, and decode attention's kernel once per layer of
+     each decode step (every family with a KV cache), each of its six projection shapes held to its
      plain version (1e-4), scan ≡ python, two runs equal, prefill ms,
      decode ms/token and tok/s (median, min, max of 7), continuous dense ≡
      paged on 8 ``_poisson_draws`` requests, and the int8 pair's device
@@ -210,7 +223,7 @@ Phases, in order; any failure exits non-zero before the last line:
      equal the same row in windows of 68, 80 and 192 rows.
      moonshot-v1-16b-a3b (MoE: 48 layers, 64 experts, top-6;
      ~56 GB) at full width and depth unquantized: the same checks and
-     times but the int8 ones (no hand kernel runs on its path), its peak
+     times but the int8 ones (no SONIC kernel runs on its path), its peak
      memory, the weight bytes a decode step reads, and one ``truncate:12``
      k = 4 speculative run that finishes.  internlm2-1.8b, qwen2-vl-2b
      (also a forward on embeddings with M-RoPE positions) and command-r-35b
@@ -221,7 +234,8 @@ Phases, in order; any failure exits non-zero before the last line:
      reference's reason.  The recurrent families at full width and depth,
      bf16 (``_family_recurrent``): zamba2-7b (hybrid: 81 Mamba2 layers, one
      shared attention block invoked every 6) and rwkv6-3b (32 layers): no
-     hand kernel launched, scan ≡ python, two runs equal, prefill ms,
+     hand kernel launched but decode attention's, once per invocation of
+     zamba2's shared block and decode step, scan ≡ python, two runs equal, prefill ms,
      decode ms/token and tok/s (median, min, max of 7), peak memory,
      capture seconds, the device kernels and busy ms of one decode-step
      replay (torch.profiler), the bytes a decode step must move (the
@@ -281,8 +295,8 @@ Phases, in order; any failure exits non-zero before the last line:
      projection (``layers.dense_apply`` at tinyllama's wi) on DTensors
      must give the plain path's bits at M = 1, 4 and 68.
  19. quickstart: ``examples/quickstart_torch.py``'s ``main`` on the card.
-Prints ``{"kernels": [...]}`` (all seven kernels) on the line before the
-last, and as the last line ``{"ok": true, "device": {...}}``.
+Prints ``{"kernels": [...]}`` (all seven kernels and decode attention's)
+on the line before the last, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -432,6 +446,15 @@ PREVIOUS_MS = {("sonic_matmul", 256): 23.137, ("clustered_matmul", 256): 44.351,
 # (split 1) beside build.decode_split's choice
 DECODE_ENTRY = {INT8_MATVEC: "sonic_matvec_int8_mma", "sonic_matvec": "sonic_matvec_mma"}
 WINDOWS = (8, 12, 20, 256)  # verify windows B·(k+1), B = 4, k = 1, 2, 4; a prefill
+ATTENTION = "decode_attention"  # the kernel every decode step and verify window runs
+# decode_attention at the benchmark cells' decode shapes (PERF.md §4): slots,
+# S_max, layers, KV heads, G, and the slots' positions drawn uniformly in
+# [lo, hi]: internlm2-1.8b's 32 slots at a mean context of ~400 (prompts
+# 32–256, answers 256–1024), mistral-nemo-12b's 4 at ~1,300
+DA_CELLS = {"internlm2-reasoning": dict(b=32, s_max=1536, layers=24, kh=8, g=2, lo=32, hi=800),
+            "nemo-chat": dict(b=4, s_max=4096, layers=40, kh=8, g=4, lo=600, hi=2000)}
+DA_DH = 128
+DA_WINDOWS = (2, 5, 16)  # verify windows (k + 1 rows) held against decode rows
 TOPK_FRAC = 0.25  # mode "topk"'s default kept fraction
 LAYER_MODES = ("sonic", "block_sparse", "clustered")
 LAYER_BLOCK = (128, 128)
@@ -569,6 +592,10 @@ def phase_main_path(card: str):
         raise AssertionError(f"main path: routes {routes}, want all on the tensor cores")
     if _captures(eng) != {"prefill": 1, "decode": 1}:
         raise AssertionError(f"main path: captures {eng.trace_counts}, want one of each")
+    step = eng.graph_launches()["decode"][args.batch][ATTENTION][0]
+    if step != eng.cfg.n_layers:
+        raise AssertionError(f"main path: a decode replay launches {ATTENTION} {step} times, "
+                             f"want one per layer ({eng.cfg.n_layers})")
     if tokens.shape != (args.batch, args.new_tokens) or not (
             (tokens >= 0) & (tokens < eng.cfg.vocab_size)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
@@ -1018,9 +1045,111 @@ def phase_row_bits(dev: torch.device) -> None:
                 raise AssertionError(f"{k}x{n} {label}: a decode row differs from its window "
                                      f"row: {row[label]}")
         out[f"{k}x{n}"] = row
+    attention = _attention_rows(dev)
+    for name, diff in attention.items():
+        if diff["rows_differing"]:
+            raise AssertionError(f"{name} {ATTENTION}: a decode row differs from its "
+                                 f"window row: {diff}")
     emit({"phase": "row_bits", "decode_rows": [1, 4, 7], "windows": list(WINDOWS),
           "dense_windows": [m for m in WINDOWS if m < 64], "held": list(ROW_BITS_HELD),
-          "by_shape": out})
+          "by_shape": out, ATTENTION: {"windows": list(DA_WINDOWS), "by_cell": attention}})
+
+
+def _attention_operands(cell: dict, c: int, dev, seed: int = 7):
+    """A stacked (layers, B, S_max, KH, Dh) bf16 K and V, q (B, C, H, Dh) and
+    the slots' positions of a ``DA_CELLS`` cell."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cell["layers"], cell["b"], cell["s_max"], cell["kh"], DA_DH)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((cell["b"], c, cell["kh"] * cell["g"], DA_DH), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    pos = torch.randint(cell["lo"], cell["hi"] + 1, (cell["b"],), generator=gen, device=dev)
+    return k, v, q, pos
+
+
+def _attention_rows(dev) -> dict:
+    """At each cell's shapes, one layer: the rows of verify windows of
+    ``DA_WINDOWS`` rows against the decode step (C = 1) at each row's
+    position, bit for bit."""
+    out = {}
+    for name, cell in DA_CELLS.items():
+        k, v, q, pos = _attention_operands({**cell, "layers": 1}, max(DA_WINDOWS), dev)
+        pairs = differ = 0
+        worst = 0.0
+        for c in DA_WINDOWS:
+            window = layers.decode_attention(q[:, :c], k[0], v[0], pos)
+            for i in range(c):
+                step = layers.decode_attention(q[:, i:i + 1].contiguous(), k[0], v[0], pos + i)
+                d = (step[:, 0].float() - window[:, i].float()).abs()
+                pairs += d.shape[0] * d.shape[1]
+                differ += int((d > 0).any(-1).sum())
+                worst = max(worst, d.max().item())
+        out[name] = {"rows_differing": differ, "of": pairs, "max_abs_diff": worst}
+    return out
+
+
+def _attention_bytes(cell: dict, pos: torch.Tensor, c: int) -> int:
+    """The bytes one decode_attention launch must move: each slot's live K
+    and V rows (positions 0 … pos + C − 1) once, q and out once (bf16)."""
+    live = int((pos + c).clamp(max=cell["s_max"]).sum())
+    heads = cell["kh"] * cell["g"]
+    return 2 * 2 * live * cell["kh"] * DA_DH + 2 * 2 * cell["b"] * c * heads * DA_DH
+
+
+def phase_decode_attention(dev, card: str) -> dict:
+    """The decode attention kernel at both benchmark cells' decode shapes
+    (``DA_CELLS``: one decode step, C = 1, over every layer's cache, as the
+    model runs it): held against the plain version on fp32-widened operands
+    (the kernel's scores, softmax and p·v are fp32, its output rounded once
+    to bf16; so is the reference's: one bf16 ulp apart at most, rtol 2**-7),
+    then device ms of one step's launches (a CUDA graph replayed between
+    CUDA events), its bytes bound (live K/V, q and out at 3.35 TB/s), the
+    plain version's ms (its queries padded to the engine's 16 rows, as the
+    card's decode ran before the kernel) and, as a yardstick the port never
+    calls, ``F.scaled_dot_product_attention`` with the same mask
+    (``library_ms``).  Returns the kernels line's entry."""
+    t0 = time.perf_counter()
+    cells = {}
+    for name, cell in DA_CELLS.items():
+        k, v, q, pos = _attention_operands(cell, 1, dev)
+        n = cell["layers"]
+        got = layers.decode_attention(q, k[0], v[0], pos)
+        want = layers.decode_attention_plain(q.float(), k[0].float(), v[0].float(), pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                                   rtol=2**-7, atol=1e-5)
+        err = (got.float() - want).abs().max().item()
+        idx = torch.arange(cell["s_max"], device=dev)
+        mask = (idx[None, :] <= pos[:, None])[:, None, None, :]  # (B, 1, C, S_max)
+        qt = q.transpose(1, 2)
+
+        def library(i):
+            return F.scaled_dot_product_attention(
+                qt, k[i].transpose(1, 2), v[i].transpose(1, 2), attn_mask=mask,
+                scale=DA_DH**-0.5, enable_gqa=True)
+
+        n_bytes = n * _attention_bytes(cell, pos, 1)
+        ms = _step_ms(lambda: [layers.decode_attention(q, k[i], v[i], pos) for i in range(n)])
+        line = {"b": cell["b"], "s_max": cell["s_max"], "layers": n, "kv_heads": cell["kh"],
+                "g": cell["g"], "head_dim": DA_DH, "rows": 1,
+                "mean_context": float(pos.float().mean() + 1),
+                "max_abs_err_vs_fp32": err, "kernel_ms": ms,
+                "us_per_launch": ms * 1e3 / n, "bytes": n_bytes,
+                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "plain_ms": _step_ms(lambda: [layers.decode_attention_plain(
+                    q, k[i], v[i], pos, 16) for i in range(n)]),
+                "library_ms": _step_ms(lambda: [library(i) for i in range(n)])}
+        line["bound_share"] = line["bound_ms"] / ms
+        line["gb_s"] = n_bytes / (ms * 1e-3) / 1e9
+        cells[name] = line
+        del k, v, q
+        torch.cuda.empty_cache()
+    emit({"phase": "decode_attention", "card": card, "cells": cells,
+          "seconds": time.perf_counter() - t0})
+    return {"name": ATTENTION, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu", "replaces": None,
+            "cells": cells}
 
 
 def _bf16_kernels(tree):
@@ -1559,14 +1688,15 @@ def phase_speculative(eng, card: str) -> dict:
                                  f"generate at B = 1: {line}")
         need = ([] if e.sc.weight_quant == "none" else [INT8_MATVEC, INT8_MATMUL]) + (
             ["block_sparse_matmul"] if "self" in key else [])
-        if e.sc.weight_quant == "none" and line["launches"]:
-            raise AssertionError(f"speculative {name}: the dense weights launched "
-                                 f"{line['launches']}")
+        sonic = {n: c for n, c in line["launches"].items() if n != ATTENTION}
+        if e.sc.weight_quant == "none" and sonic:
+            raise AssertionError(f"speculative {name}: the dense weights launched {sonic}")
+        need.append(ATTENTION)
         if any(counts[n][0] == 0 for n in need):
             raise AssertionError(f"speculative {name}: launches {line['launches']}, want "
                                  f"{need} each launched")
         if any(r.get(build.CUDA_CORES, 0) for n, r in line["routes"].items()
-               if n in need) or not st["spec_steps"]:
+               if n in need and n != ATTENTION) or not st["spec_steps"]:
             raise AssertionError(f"speculative {name}: routes {line['routes']}, want every "
                                  f"bf16 launch on the tensor cores")
         if "overcommit" in kw and not st["preemptions"]:
@@ -1931,8 +2061,8 @@ def phase_http(eng, card: str) -> dict:
     counts = a.pop("counts")
     launched = {n: c for n, (c, _) in counts.items() if c}
     routes = {n: r for n, (c, r) in counts.items() if c}
-    if any(launched.get(n, 0) == 0 for n in KERNELS) or any(
-            r.get(build.CUDA_CORES, 0) for r in routes.values()):
+    if any(launched.get(n, 0) == 0 for n in (*KERNELS, ATTENTION)) or any(
+            r.get(build.CUDA_CORES, 0) for n, r in routes.items() if n in KERNELS):
         raise AssertionError(f"http: launches {launched}, routes {routes}, want the int8 pair "
                              f"launched, every launch on the tensor cores")
     if sum(o["heartbeats"] for o in a["outs"]) == 0:
@@ -2610,7 +2740,8 @@ def _family_serve(arch_id: str, depth: int | None, quant: bool, card: str, dev) 
     batch 4 × prompt 64 on the "scan" loop (prefill and decode step as CUDA
     graphs), the counters zeroed just before and read just after.  Held:
     the int8 pair at n_layers·7 + 1 launches per prefill and per decode
-    step, all on the tensor cores (no hand kernel on an unquantized path),
+    step, all on the tensor cores (no SONIC kernel on an unquantized path),
+    and decode attention's kernel once per layer of each decode step,
     tokens in range, a second run and the "python" loop equal; each int8
     shape against its plain version.  At full depth also: prefill ms,
     decode ms/token and tok/s (median, min, max of 7), continuous dense ≡
@@ -2647,10 +2778,13 @@ def _family_serve(arch_id: str, depth: int | None, quant: bool, card: str, dev) 
                "decode_step": _graphed_counts(graphs["decode"][FAMILY_BATCH])}
     n_proj = cfg.n_layers * len(PROJECTIONS) + 1
     tc = {build.TENSOR_CORES: n_proj}
-    want = ({"prefill": {INT8_MATMUL: [n_proj, tc]}, "decode_step": {INT8_MATVEC: [n_proj, tc]}}
-            if quant else {"prefill": {}, "decode_step": {}})
+    att = {ATTENTION: [cfg.n_layers, {build.CUDA_CORES: cfg.n_layers}]}  # one per layer
+    want = ({"prefill": {INT8_MATMUL: [n_proj, tc]},
+             "decode_step": {INT8_MATVEC: [n_proj, tc], **att}}
+            if quant else {"prefill": {}, "decode_step": att})
     launches = {n: c for n, (c, _) in counts.items() if c}
-    want_launches = ({INT8_MATMUL: n_proj, INT8_MATVEC: n_proj * (n_new - 1)} if quant else {})
+    want_launches = ({INT8_MATMUL: n_proj, INT8_MATVEC: n_proj * (n_new - 1)} if quant
+                     else {}) | {ATTENTION: cfg.n_layers * (n_new - 1)}
     if graphed != want or launches != want_launches:
         raise AssertionError(f"families {arch_id}: graphed {graphed}, launches {launches}; "
                              f"want {want}, {want_launches}")
@@ -2835,7 +2969,9 @@ def _family_recurrent(arch_id: str, card: str, dev) -> None:
     params from a seeded generator on the card, unquantized, greedy batch
     4 × prompt 64 × 32 new on the "scan" loop (the prefill and decode step
     as CUDA graphs, the state written in place into the cache's leaves).
-    Held: no hand kernel launched, tokens in range, a second run and the
+    Held: no hand kernel launched but decode attention's (once per
+    invocation of zamba2's shared block and decode step), tokens in range,
+    a second run and the
     "python" loop equal, the continuous requests and the refusals of
     ``_recurrent_continuous`` / ``_recurrent_refusals``.  Timed: prefill
     ms, decode ms/token and tok/s (median, min, max of 7), one decode-step
@@ -2858,9 +2994,11 @@ def _family_recurrent(arch_id: str, card: str, dev) -> None:
     tokens = eng.generate(prompts, FAMILY_NEW)
     torch.cuda.synchronize()
     launches = {n: c for n, (c, _) in counters.snapshot().items() if c}
-    if launches or tokens.shape != (FAMILY_BATCH, FAMILY_NEW) or not (
+    shared = n_shared_invocations(cfg) if cfg.family == "hybrid" else 0
+    want = {ATTENTION: shared * (FAMILY_NEW - 1)} if shared else {}
+    if launches != want or tokens.shape != (FAMILY_BATCH, FAMILY_NEW) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
-        raise AssertionError(f"families {arch_id}: launches {launches}, tokens "
+        raise AssertionError(f"families {arch_id}: launches {launches} (want {want}), tokens "
                              f"{tuple(tokens.shape)}")
     if not torch.equal(eng.generate(prompts, FAMILY_NEW), tokens):
         raise AssertionError(f"families {arch_id}: a second run gave other tokens")
@@ -3433,6 +3571,7 @@ def main() -> None:
     phase_fp32_decode_cost(eng, card)
     layer_errs = phase_layer_kernels(dev)
     phase_row_bits(dev)
+    kernels.append(phase_decode_attention(dev, card))
     phase_serving_modes(eng, eager, card)
     phase_continuous(eng, card)
     spec_extras = phase_speculative(eng, card)

@@ -4,7 +4,8 @@ Every ``*.cu`` under ``src/repro_torch/csrc/`` is a kernel with a plain C
 entry point; the kernels' shared device code is ``block_sparse_kernels.cuh``
 (CUDA cores), ``block_mma.cuh`` (tensor cores) and ``decode_mma.cuh`` (the
 decode matvecs on the tensor cores, and the launch and cluster-barrier
-helpers ``sparse_matvec.cu`` takes) beside them.
+helpers ``sparse_matvec.cu`` takes) beside them; ``decode_attention.cu``
+stands alone.
 ``build()`` starts one ``nvcc -c`` per source, all at once, links the
 objects into one shared library under ``build/`` at the root of the
 checkout, and writes the compiler's output (``-Xptxas -v``: registers,
@@ -40,7 +41,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Each entry point's C arguments; every one ends with the cudaStream_t and
 # returns cudaGetLastError() after its launch.
 #   int8:      (x, x_is_bf16, int8 values, fp32 scales, int32 indices, y,
@@ -54,6 +55,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #   sparse_matvec: (x_nz, x_is_bf16, int32 idx, wt, wt_is_bf16, y, B, knz,
 #               K, N, tile, split, async, stream): ``sparse_matvec_plan``'s
 #               tile and split, ``sparse_matvec_route``'s copy (async 1 or 0)
+#   decode_attention: (q, q_is_bf16, k, v, kv_is_bf16, pos, pos_is_i64, out,
+#               fp32 part, float2 ml, B, C, H, KH, Dh, S, q's three strides,
+#               k's, v's (elements), scale, stream): the workspace's sizes
+#               from ``decode_attention_plan``
 # The ``*_mma`` entry points (the tensor-core route) take bf16 x only; the
 # two decode ones (``sonic_matvec_int8_mma``, ``sonic_matvec_mma``) take
 # ``split`` (``decode_split``) before the stream.
@@ -75,6 +80,8 @@ SIGNATURES = {
     "clustered_matmul": _CLUSTERED,
     "clustered_matmul_mma": _CLUSTERED,
     "sparse_matvec": [_P, _I, _P, _P, _I, _P] + [_I] * 7 + [_P],
+    "decode_attention": [_P, _I, _P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 6 + [_L] * 9
+    + [ctypes.c_float, _P],
 }
 MAX_CODEBOOK = {torch.int8: 128, torch.int32: 1024}  # centroids per id type
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
@@ -94,6 +101,9 @@ DECODE_BLOCKS_PER_SM = {"sonic_matvec_int8_mma": 4, "sonic_matvec_mma": 2}
 SMV_CHUNK, SMV_WARPS, SMV_TILES, SMV_MAX_SPLIT = 32, 4, (256, 128, 64, 32), 8
 ASYNC_COPY = "async_copy"
 SMV_ROUTES = (ASYNC_COPY, CUDA_CORES)
+# decode_attention (csrc/decode_attention.cu): positions per split (one
+# block's tile, a constant), query rows per block at most, head sizes
+DA_SPLIT, DA_MAX_ROWS, DA_MAX_HEAD_DIM = 128, 16, 256
 
 
 def mma_route(bk: int, bn: int, x_dtype: torch.dtype, *, dense: bool = False) -> str:
@@ -456,3 +466,85 @@ def launch_sparse_matvec(x_nz: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor
           wt.data_ptr(), int(wt.dtype == torch.bfloat16), y.data_ptr(), b, knz, k, n, tile,
           split, int(sparse_matvec_route(wt) == ASYNC_COPY), _stream(x_nz))
     return y
+
+
+def decode_attention_plan(b: int, c: int, h: int, kh: int, dh: int, s_max: int) -> dict:
+    """The launch of ``decode_attention`` for q (B, C, H, Dh) over a cache
+    (B, S_max, KH, Dh): positions per split (``DA_SPLIT``, a constant: a
+    row's sums follow the split and its own position alone), query rows
+    (c, g) per block (the power of two at or above C·G, at most
+    ``DA_MAX_ROWS``; each row's sums are its own), the first kernel's grid
+    (KH, splits, B · row groups; blocks past their rows' last position exit
+    on the card) and the fp32 workspace (a split's p·v per row, and its max
+    and sum).  Only the grid and the workspace follow B, C and S_max."""
+    rows = c * (h // kh)
+    per_block = min(DA_MAX_ROWS, 1 << (rows - 1).bit_length())
+    splits = -(-s_max // DA_SPLIT)
+    return {"split": DA_SPLIT, "rows_per_block": per_block,
+            "grid": (kh, splits, b * -(-rows // per_block)),
+            "part_floats": b * kh * splits * rows * dh, "ml_floats": 2 * b * kh * splits * rows}
+
+
+def check_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: torch.Tensor) -> None:
+    """What ``decode_attention`` takes, checked from shapes, types and
+    strides alone (so also on meta tensors): q (B, C, H, Dh) bf16 or fp32,
+    k and v (B, S_max, KH, Dh) of one type, bf16 or fp32, KH dividing H,
+    Dh a multiple of 8 up to ``DA_MAX_HEAD_DIM``, Dh contiguous in all
+    three and the cache's other strides whole 16-byte steps, pos (B,)
+    contiguous int32 or int64."""
+    name = "decode_attention"
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: q must be bfloat16 or float32, got {q.dtype}")
+    if k_cache.dtype not in (torch.bfloat16, torch.float32) or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{name}: k and v must share a type, bfloat16 or float32, got "
+                        f"{k_cache.dtype} and {v_cache.dtype}")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: pos must be int32 or int64, got {pos.dtype}")
+    if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"{name}: want q (B, C, H, Dh) and k, v (B, S_max, KH, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, c, h, dh = q.shape
+    kb, s_max, kh, kdh = k_cache.shape
+    if (kb != b or kdh != dh or kh < 1 or h % kh or min(b, c, s_max) < 1
+            or pos.shape != (b,) or not pos.is_contiguous()):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, cache {tuple(k_cache.shape)} and pos "
+                         f"{tuple(pos.shape)} do not fit")
+    if dh % 8 or not 8 <= dh <= DA_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim must be a multiple of 8 up to "
+                         f"{DA_MAX_HEAD_DIM}, got {dh}")
+    es = k_cache.element_size()
+    if (q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1
+            or any(s * es % 16 for t in (k_cache, v_cache) for s in t.stride()[:3])):
+        raise ValueError(f"{name}: Dh must be contiguous and the cache's rows 16-byte "
+                         f"steps apart, got strides {q.stride()}, {k_cache.stride()}, "
+                         f"{v_cache.stride()}")
+
+
+def launch_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            pos: torch.Tensor) -> torch.Tensor:
+    """out (B, C, H, Dh) in the cache's type from ``decode_attention``
+    (``check_decode_attention``'s operands, on the current CUDA device, the
+    cache 16-byte aligned): query row c of slot b over positions 0 …
+    min(pos[b] + c, S_max − 1)."""
+    name = "decode_attention"
+    check_decode_attention(q, k_cache, v_cache, pos)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if any(t.device != dev for t in (q, k_cache, v_cache, pos)):
+        raise ValueError(f"{name}: every operand must be on the current CUDA device {dev}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must be 16-byte aligned")
+    b, c, h, dh = q.shape
+    s_max, kh = k_cache.shape[1:3]
+    plan = decode_attention_plan(b, c, h, kh, dh, s_max)
+    if plan["grid"][1] > 65535 or plan["grid"][2] > 65535 or c * (h // kh) > 65535:
+        raise ValueError(f"{name}: splits, B · row groups and C·G must be at most 65535")
+    out = torch.empty(q.shape, dtype=v_cache.dtype, device=dev)
+    part = torch.empty(plan["part_floats"], dtype=torch.float32, device=dev)
+    ml = torch.empty(plan["ml_floats"], dtype=torch.float32, device=dev)
+    _call(name, q.data_ptr(), int(q.dtype == torch.bfloat16), k_cache.data_ptr(),
+          v_cache.data_ptr(), int(k_cache.dtype == torch.bfloat16), pos.data_ptr(),
+          int(pos.dtype == torch.int64), out.data_ptr(), part.data_ptr(), ml.data_ptr(),
+          b, c, h, kh, dh, s_max, *q.stride()[:3], *k_cache.stride()[:3],
+          *v_cache.stride()[:3], dh**-0.5, _stream(q))
+    return out

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.block_sparse_matmul import kernel as bs_kernel
 from repro_torch.kernels.clustered_matmul import kernel as cm_kernel
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.sonic_matmul import kernel as sm_kernel
 from repro_torch.kernels.sparse_matvec import kernel as smv_kernel
 
@@ -24,6 +25,7 @@ WRAPPERS = {
     "block_sparse_matmul": bs_kernel.block_sparse_matmul_kernel,
     "clustered_matmul": cm_kernel.clustered_matmul_kernel,
     "sparse_matvec": smv_kernel.sparse_matvec_kernel,
+    "decode_attention": da_kernel.decode_attention_kernel,
 }
 
 Counts = dict[str, tuple[int, dict[str, int]]]

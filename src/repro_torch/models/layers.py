@@ -17,9 +17,11 @@ Conventions:
     give each token the bits of the same token in any other of them.  The
     dense projections run in chunks of a fixed row count on the card
     (``fixed_rows``), the norm's mean pads its rows to a fixed floor, the
-    decode-style attention pads its query rows to ``DECODE_QUERY_ROWS``,
-    and every cached prefill walks its queries in chunks of
-    ``PREFILL_QUERY_CHUNK`` over the whole cache length.
+    decode-style attention runs on the card in a kernel whose rows are
+    independent (``kernels/decode_attention``) and elsewhere pads its query
+    rows to ``DECODE_QUERY_ROWS``, and every cached prefill walks its
+    queries in chunks of ``PREFILL_QUERY_CHUNK`` over the whole cache
+    length.
   * a dense product that autograd records (training) is one product over
     all its rows: its weight gradient is then one sum over the rows,
     accumulated in fp32 and rounded once, where 64-row chunks would add
@@ -40,14 +42,16 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sonic_layers import draft_apply, serve_quant_apply
+from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel
 from repro_torch.utils.rows import CPU_ROWS, DENSE_CUDA_ROWS, at_least_rows, in_row_chunks
 
 Params = dict[str, Any]
 
-# Query rows per sequence that decode-style attention computes (a decode
-# step's 1, a verify window's k + 1, padded): one shape for every window up
-# to this size.  Queries per chunk of a cached prefill: a prompt of up to
-# 64 tokens is one chunk, and a shorter chunk-resume pads to it.
+# Query rows per sequence that the plain decode-style attention computes (a
+# decode step's 1, a verify window's k + 1, padded): one shape for every
+# window up to this size (the card's kernel takes the real rows).  Queries
+# per chunk of a cached prefill: a prompt of up to 64 tokens is one chunk,
+# and a shorter chunk-resume pads to it.
 DECODE_QUERY_ROWS = {"cpu": CPU_ROWS, "cuda": 16}
 PREFILL_QUERY_CHUNK = 64
 
@@ -436,14 +440,30 @@ def decode_attention(
     k_cache: torch.Tensor,  # (B, S_max, KH, Dh)
     v_cache: torch.Tensor,  # (B, S_max, KH, Dh)
     pos: torch.Tensor,  # (B,) position of the FIRST query token
-    rows: int = 0,  # query rows to pad to; 0 = DECODE_QUERY_ROWS
+    rows: int = 0,  # the plain version's padded query rows; 0 = DECODE_QUERY_ROWS
 ) -> torch.Tensor:
     """Decode-style attention over the cache: query i (at absolute position
     ``pos + i``) attends cache positions ``<= pos + i``; everything beyond is
-    masked.  One plain softmax per query row (not the online-softmax flash
-    path), as in the reference: C == 1 is a decode step, C > 1 the
-    speculative-verify window, whose rows are each the decode step they
-    replace.  The query rows are padded to ``rows`` (the engine's
+    masked.  C == 1 is a decode step, C > 1 the speculative-verify window,
+    whose rows are each the decode step they replace.  A CPU tensor takes
+    ``decode_attention_plain``; any other the hand kernel
+    (``decode_attention_kernel``: the real C rows, each row's bits its own),
+    which launches or raises."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, pos, rows)
+    return decode_attention_kernel(q, k_cache, v_cache, pos)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # (B, C, H, Dh)
+    k_cache: torch.Tensor,  # (B, S_max, KH, Dh)
+    v_cache: torch.Tensor,  # (B, S_max, KH, Dh)
+    pos: torch.Tensor,  # (B,)
+    rows: int = 0,  # query rows to pad to; 0 = DECODE_QUERY_ROWS
+) -> torch.Tensor:
+    """``decode_attention`` in plain PyTorch: one plain softmax per query row
+    over all S_max positions (not the online-softmax flash path), as in the
+    reference.  The query rows are padded to ``rows`` (the engine's
     ``decode_query_rows``; by default ``DECODE_QUERY_ROWS``), their outputs
     dropped, so a step and a window up to that size run the same shapes and
     give a row the same bits."""

@@ -152,8 +152,9 @@ def forward(
     the chunk at absolute positions ``cache_pos .. cache_pos+S-1`` over the
     cache's prefix.  ``decode_chunk=True`` (with ``cache_pos``, S > 1) is
     the speculative-verify window: the same writes, and each row attends as
-    the sequential decode step it replaces (``layers.decode_attention``,
-    its query rows padded to ``query_rows``, 0 = the device's default).
+    the sequential decode step it replaces (``layers.decode_attention``;
+    its plain version pads the query rows to ``query_rows``, 0 = the
+    device's default).
     ``embeds`` replaces the token embedding (hubert's frames, qwen2-vl's
     patch and text embeddings); M-RoPE positions are (B, 3, S)."""
     plan = plan or NO_PLAN

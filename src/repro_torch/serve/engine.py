@@ -138,10 +138,12 @@ and ``"truncate:N"``, the served model's first N layers drafting from the
 verifier's own cache (its leaves' first N layers, views: its k/v land in
 the verifier's cache at ``pos … pos+k−1``, which the window rewrites
 before it reads them).  Greedy only; paged, the window must fit a slot's
-scratch block (k < block_len).  The engine pads its decode-style attention
-to ``query_rows`` (``layers.decode_query_rows``: on the card the multiple of
-16 at or above k + 1, 16 without speculation), so its decode steps and
-verify windows run one shape and a decode row keeps its window row's bits.
+scratch block (k < block_len).  A decode row keeps its window row's bits:
+on the card decode-style attention is a kernel whose rows are independent
+(``kernels/decode_attention``, the real k + 1 rows); the plain version, and
+the meshed flash-decode, pad the query rows to ``query_rows``
+(``layers.decode_query_rows``: on the card the multiple of 16 at or above
+k + 1, 16 without speculation), so a step and a window run one shape.
 """
 from __future__ import annotations
 
