@@ -1,6 +1,8 @@
 """Cells, configurations and traffic mixes, found by name in their own files:
 ``workloads/<cell>.json``, ``configs/<config>.json``, ``traffic/<mix>.json``.
-A new cell, configuration or mix is a new file; nothing here names one."""
+A new cell, configuration or mix is a new file; nothing here names one.  A
+configuration's model (its family and reference files) is found the same
+way, by the paths the configuration gives (``bench/families/``)."""
 from __future__ import annotations
 
 import dataclasses

@@ -5,7 +5,10 @@ The program under test is ``repro_torch``'s ``ServeEngine`` (int8
 block-sparse weights, CUDA-graph slot programs) under its
 ``ContinuousScheduler`` (chunked prefill, while-mode segments, greedy).  The
 benchmark makes the weights and the traffic from the seed and reads only the
-scheduler's requests, its ``stats`` and the engine's capture counts.
+scheduler's requests, its ``stats`` and the engine's capture counts.  The
+model is the configuration's own: its family file builds the port's
+``Arch`` and weights, its reference file decides ``correct``
+(``bench/families/``); nothing here knows its layers.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from bench import reference, traffic, weights
+from bench import families, traffic
 from bench.cells import Cell
 from bench.tracing import Recorder, reduce_profile
 
@@ -27,26 +30,6 @@ DRAIN_LIMIT_S = 60.0  # an answer due in the window that has not come by then ne
 TRACE_AT = 1 / 3  # the profiled slice starts this far into the window ...
 TRACE_SECONDS = 3.0  # ... and lasts about this long (at loop boundaries)
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level names the run may not load
-
-
-def build_arch(model: dict):
-    """The port's ``Arch`` for a configuration file: its sizes as the file
-    states them."""
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.models.registry import Arch
-
-    for key, want in (("hidden_act", "silu"), ("tie_word_embeddings", False),
-                      ("rms_norm_eps", 1e-5)):
-        if model[key] != want:
-            raise SystemExit(f"{model['name']}: {key}={model[key]!r}; the port's dense "
-                             f"transformer runs {want!r}")
-    cfg = ModelConfig(arch_id=model["port_arch"], family="dense",
-                      n_layers=model["num_hidden_layers"], d_model=model["hidden_size"],
-                      n_heads=model["num_attention_heads"],
-                      n_kv_heads=model["num_key_value_heads"], head_dim=model["head_dim"],
-                      d_ff=model["intermediate_size"], vocab_size=model["vocab_size"],
-                      rope_theta=float(model["rope_theta"]))
-    return Arch(arch_id=model["port_arch"], cfg=cfg)
 
 
 @dataclasses.dataclass
@@ -72,6 +55,7 @@ class Program:
 
         model, serve = cell.model, cell.serve
         self.device = device
+        self.family = families.load(model)
         laps = [time.perf_counter()]
         if device.type == "cuda":
             from repro_torch.kernels import build
@@ -84,10 +68,10 @@ class Program:
                          weight_quant_sparsity=comp["sparsity"],
                          weight_quant_block=tuple(comp["block"]))
         with torch.inference_mode():
-            params = weights.param_tree(model, seed, device)
+            params = self.family.param_tree(model, seed, device)
         self.sync()
         laps.append(time.perf_counter())
-        self.engine = ServeEngine(build_arch(model), params, sc, device=device)
+        self.engine = ServeEngine(self.family.build_arch(model), params, sc, device=device)
         del params  # the engine keeps its int8 tree; the bf16 one goes
         if hook is not None:
             hook(self.engine)
@@ -120,7 +104,7 @@ class Program:
         from repro_torch.core.sonic_layers import quantize_serve_params
 
         comp = self.cell.model["compression"]
-        fresh = quantize_serve_params(weights.param_tree(self.cell.model, seed, self.device),
+        fresh = quantize_serve_params(self.family.param_tree(self.cell.model, seed, self.device),
                                       comp["sparsity"], tuple(comp["block"]))
 
         def copy(dst, src):
@@ -330,6 +314,7 @@ def compare(cell: Cell, seed: int, served: list[Served], device, control: bool =
     picked = [s for s in sample(served, seed, cell.check["sample_tokens"])
               if s not in malformed]
     seqs = [(s.prompt.astype(np.int64), list(s.handle.tokens)) for s in picked]
+    reference = families.reference(cell.model)
     t0 = time.perf_counter()
     got = (reference.logit_gaps(cell.model, seed, device, seqs, control=control) if seqs
            else {"gap": math.inf, "control_gap": math.inf, "tokens": 0})

@@ -1,8 +1,10 @@
 """The plain reference: a dense GQA SwiGLU transformer (Mistral's and
 InternLM2's layer equations) in float32, with no kernel, cache or batching,
-run layer by layer over whole sequences.  It imports nothing of the program.
+run layer by layer over whole sequences: the reference of every
+configuration that names none.  It imports nothing of the program.
 
-It makes each layer's bf16 weights again from the seed (``weights``), and
+It makes each layer's bf16 weights again from the seed, with the dense
+family's draws (``bench/families/dense.py``, over ``bench/weights.py``), and
 works out the served weights from them itself: balanced top-|L1| block
 pruning, then one symmetric int8 scale per kept block (max|block| / 127),
 as SONIC's C1 step and the int8 serving format define them.  TF32 is off
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from bench import weights as W
+from bench.families import dense as D
 
 FP8_MAX = 448.0  # float8 e4m3's largest finite value
 
@@ -148,13 +151,13 @@ def logit_gaps(model: dict, seed: int, device, seqs: list[tuple[np.ndarray, list
         xs = [[emb[t].float() for t in toks] for _ in streams]
         del emb
         for layer in range(model["num_hidden_layers"]):
-            ws = {name: served_weight(W.projection(model, seed, name, layer, device), block,
-                                      sparsity) for name in W.shapes(model)}
+            ws = {name: served_weight(D.projection(model, seed, name, layer, device), block,
+                                      sparsity) for name in D.shapes(model)}
             for s, x in zip(streams, xs):
                 sw = {name: s.weight(w) for name, w in ws.items()}
                 x[:] = [_layer(s, model, sw, xi) for xi in x]
             del ws
-        head = served_weight(W.projection(model, seed, "lm_head", -1, device), block, sparsity)
+        head = served_weight(D.projection(model, seed, "lm_head", -1, device), block, sparsity)
         out = {"gap": 0.0, "tokens": 0}
         if control:
             out["control_gap"] = 0.0

@@ -4,7 +4,8 @@ fp32 compute are the reference's best at every position."""
 import numpy as np
 import torch
 
-from bench import harness, reference, weights
+from bench import reference
+from bench.families import dense
 from bench.testing import SEED, run_tiny, tiny
 
 
@@ -14,7 +15,7 @@ def test_reference_weights_are_the_ports():
     model = tiny().model
     comp = model["compression"]
     for name, layer in (("attn/wq", 0), ("ffn/wo", 1), ("lm_head", -1)):
-        w = weights.projection(model, SEED, name, layer, "cpu")
+        w = dense.projection(model, SEED, name, layer, "cpu")
         port = make_block_sparse_int8(w, comp["sparsity"], tuple(comp["block"])).dense()
         assert torch.equal(reference.served_weight(w, comp["block"], comp["sparsity"]), port)
 
@@ -24,13 +25,13 @@ def test_ports_fp32_greedy_tokens_are_the_references_best():
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     model = tiny().model
-    arch = harness.build_arch(model)
+    arch = dense.build_arch(model)
     arch = Arch(arch.arch_id, arch.cfg.replace(compute_dtype="float32"))
     comp = model["compression"]
     sc = ServeConfig(max_len=64, weight_quant="int8", weight_quant_sparsity=comp["sparsity"],
                      weight_quant_block=tuple(comp["block"]))
     with torch.inference_mode():
-        eng = ServeEngine(arch, weights.param_tree(model, SEED, "cpu"), sc, device="cpu")
+        eng = ServeEngine(arch, dense.param_tree(model, SEED, "cpu"), sc, device="cpu")
         prompts = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 12)))
         out = eng.generate(prompts, 8)
     seqs = [(prompts[i].numpy(), out[i].tolist()) for i in range(2)]

@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from bench import roofline as R
+from bench.families import dense as R
 from bench.cells import HERE
 
 

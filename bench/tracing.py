@@ -8,7 +8,9 @@ Each wrapped call is a ``torch.profiler`` range named ``bench.<span>``,
 timed by CUDA events on the current stream and by the host clock up to a
 synchronize at its end (the scheduler downloads each call's result right
 after it, so the synchronize moves no work).  The host loop adds
-``bench.submit`` and ``bench.wait`` ranges.
+``bench.submit`` and ``bench.wait`` ranges.  The problem's operations and bytes
+behind each call's roofline come from the configuration's family file
+(``bench/families/``).
 
 ``reduce_profile`` reads the raw device events of the profiled slice: the
 union of their intervals (busy time), the int8 kernels' time inside the
@@ -25,6 +27,7 @@ from collections import defaultdict
 import torch
 from torch.profiler import record_function
 
+from bench import families
 from bench import roofline as R
 
 INT8_MARK = "Int8Scale"  # the int8 weight policy in both int8 kernels' names
@@ -34,6 +37,7 @@ NAME_CHARS = 160  # a device operation's name in the breakdown, cut to this
 class Recorder:
     def __init__(self, model: dict, device: torch.device):
         self.model, self.device = model, device
+        self.family = families.load(model)
         self.cuda = device.type == "cuda"
         self.profiling = False  # set by the host loop around the profiled slice
         self.calls: list[dict] = []  # one per wrapped program call
@@ -64,7 +68,7 @@ class Recorder:
         return {c["kind"] for c in self.calls if c["traced"]}
 
     def install(self, eng, sched) -> None:
-        model, rec = self.model, self
+        model, fam, rec = self.model, self.family, self
 
         prefill_slots, slot_segment, admit = eng.prefill_slots, eng.slot_segment, sched._admit
 
@@ -79,8 +83,8 @@ class Recorder:
                     rows.append((int(start), real, final))
             w, cb = prompts.shape
             call.update(real_tokens=sum(r for _, r, _ in rows),
-                        roofline_s=R.bound_s(*R.prefill_chunk(model, rows)),
-                        int8_bound_s=R.int8_step_bound_s(model, w * cb))
+                        roofline_s=R.bound_s(*fam.prefill_chunk(model, rows)),
+                        int8_bound_s=fam.int8_step_bound_s(model, w * cb))
             return out
 
         def traced_segment(st, n_steps, mode, active, limit, stop_on_free=False,
@@ -99,9 +103,9 @@ class Recorder:
                         ctxs.append(ctx0[i] + seen[i])
                         seen[i] += 1
                 if ctxs:
-                    roof += R.bound_s(*R.decode_step(model, ctxs))
+                    roof += R.bound_s(*fam.decode_step(model, ctxs))
             call.update(steps=toks.shape[1], roofline_s=roof,
-                        int8_bound_s=toks.shape[1] * R.int8_step_bound_s(model, st.n_slots))
+                        int8_bound_s=toks.shape[1] * fam.int8_step_bound_s(model, st.n_slots))
             return out
 
         def traced_admit():
